@@ -1,0 +1,77 @@
+// Block-level helpers shared by the port's kernels: deterministic sums
+// (a fixed shuffle tree, then warp 0 over the per-warp partials — no
+// atomics, so a result never depends on scheduling) and a bitonic sort of a
+// power-of-two array in shared memory.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+constexpr int kMaxWarps = 32;
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Sums v[0..N) over the block; the totals are valid in thread 0.
+// scratch: N * kMaxWarps elements of shared memory.
+template <typename T, int N>
+__device__ void block_sum(T (&v)[N], T* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
+  __syncthreads();  // scratch may still be read by a previous call
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) scratch[k * kMaxWarps + warp] = v[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      T x = lane < nwarps ? scratch[k * kMaxWarps + lane] : T(0);
+      v[k] = warp_sum(x);
+    }
+  }
+}
+
+// Ascending bitonic sort of keys[0..np2) (np2 a power of two), carrying
+// vals along when it is not null. Ends with a barrier.
+template <typename K, typename V>
+__device__ void bitonic_sort(K* keys, V* vals, int np2) {
+  for (int k = 2; k <= np2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < np2; i += blockDim.x) {
+        const int p = i ^ j;
+        if (p > i) {
+          const bool up = (i & k) == 0;
+          const K a = keys[i], b = keys[p];
+          if ((a > b) == up) {
+            keys[i] = b;
+            keys[p] = a;
+            if (vals) {
+              const V t = vals[i];
+              vals[i] = vals[p];
+              vals[p] = t;
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+inline int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+}  // namespace repro

@@ -1,0 +1,99 @@
+"""Synthetic relational tables for the paper's workloads (§5.1), in numpy.
+
+The table generators the engine and its tests need: `Table` (one ⟨K, X⟩
+column pair), `TableGroup` (a join-key column shared by C numeric columns),
+`multi_column_group` (a wide table with known cross-column correlation)
+and `sbn_pair` (the SBN bivariate-normal pair). Same seeds give the same
+tables as the JAX package's generators.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Table:
+    """⟨K, X⟩ column pair: integer join keys + numeric column."""
+    keys: np.ndarray     # uint32 (hash-ready ids; strings hashed at ingest)
+    values: np.ndarray   # float32
+    name: str = ""
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class TableGroup:
+    """One relational table: a join-key column shared by C numeric columns,
+    sketched together by the index build."""
+    keys: np.ndarray             # [m] uint32 (hash-ready ids)
+    values: np.ndarray           # [C, m] float32
+    name: str = ""
+    column_names: List[str] = dataclasses.field(default_factory=list)
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_columns(self) -> int:
+        return self.values.shape[0]
+
+    def column_name(self, c: int) -> str:
+        if c < len(self.column_names):
+            return self.column_names[c]
+        return f"{self.name or 'table'}.c{c}"
+
+    def columns(self) -> List[Table]:
+        return [Table(keys=self.keys, values=self.values[c],
+                      name=self.column_name(c), meta=self.meta)
+                for c in range(self.num_columns)]
+
+
+def multi_column_group(rng, n_cols: int = 16, n_max: int = 100_000,
+                       key_space: int = 1 << 30, name: str = "",
+                       nan_frac: float = 0.01,
+                       n_rows: Optional[int] = None,
+                       keep_latent: bool = False) -> TableGroup:
+    """A wide table whose every column is a noisy mix of one shared latent
+    factor, so column i correlates with the latent with a known r_i
+    (``meta['r']``). Missing values are sprinkled per column.
+
+    ``n_rows`` fixes the row count (default: drawn from [512, n_max));
+    ``keep_latent`` stashes the latent column in ``meta['latent']`` so a
+    caller can plant a query with a known best-correlated column.
+    """
+    m = int(n_rows) if n_rows else int(rng.integers(512, n_max))
+    keys = rng.choice(key_space, size=m, replace=False).astype(np.uint32)
+    latent = rng.standard_normal(m).astype(np.float32)
+    rs = rng.uniform(-1, 1, size=n_cols)
+    vals = np.empty((n_cols, m), np.float32)
+    for c in range(n_cols):
+        noise = rng.standard_normal(m)
+        vals[c] = (rs[c] * latent
+                   + np.sqrt(max(1 - rs[c] ** 2, 0.0)) * noise).astype(np.float32)
+        if nan_frac > 0:
+            vals[c, rng.random(m) < nan_frac] = np.nan
+    meta = {"r": rs.tolist()}
+    if keep_latent:
+        meta["latent"] = latent
+    return TableGroup(keys=keys, values=vals, name=name,
+                      column_names=[f"{name}.c{c}" for c in range(n_cols)],
+                      meta=meta)
+
+
+def sbn_pair(rng, n_max: int = 500_000, r: Optional[float] = None,
+             key_space: int = 1 << 30) -> Tuple[Table, Table, float, float]:
+    """One Synthetic-Bivariate-Normal table pair (§5.1 SBN): n ~ U(256,
+    n_max) rows with unique keys, (x, y) ~ N(0, Σ(r)), and table Y a
+    uniform subsample of size n·c, c ~ U(0.05, 1). Returns (T_X, T_Y, r, c).
+    """
+    n = int(rng.integers(256, n_max))
+    r = float(rng.uniform(-1, 1)) if r is None else r
+    keys = rng.choice(key_space, size=n, replace=False).astype(np.uint32)
+    cov = np.array([[1.0, r], [r, 1.0]])
+    xy = rng.multivariate_normal([0.0, 0.0], cov, size=n).astype(np.float32)
+    c = float(rng.uniform(0.05, 1.0))
+    m = max(int(n * c), 8)
+    sel = rng.choice(n, size=m, replace=False)
+    tx = Table(keys=keys, values=xy[:, 0], name="X", meta={"r": r})
+    ty = Table(keys=keys[sel], values=xy[sel, 1], name="Y", meta={"r": r, "c": c})
+    return tx, ty, r, c

@@ -1,0 +1,83 @@
+"""Dispatch to the port's kernels, shaped like ``repro.kernels.ops``.
+
+The device of the tensors picks the path: CPU tensors go to the plain
+PyTorch twin (`repro_torch.kernels.ref`), CUDA tensors to the hand-written
+Hopper kernel, which launches or raises — there is no fallback from a
+failed build or launch to the twin. Each CUDA wrapper counts its launches
+(`LAUNCH_COUNTERS`), so a run can show its path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import rank_transform as _rt
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sketch_join as _sj
+
+#: the CUDA wrappers, each carrying a ``launches`` count
+LAUNCH_COUNTERS = {
+    "sketch_join_moments": _sj.sketch_join_moments_batched,
+    "rank_moments": _rt.rank_moments,
+    "qn_correlation": _rt.qn_correlation,
+}
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def load_kernels(device: torch.device) -> None:
+    """Build (at first use) and load every kernel library for ``device``;
+    nothing to do on the CPU."""
+    if torch.device(device).type == "cuda":
+        for name in build.SOURCES:
+            build.library(name)
+
+
+def reset_launches() -> None:
+    for fn in LAUNCH_COUNTERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
+
+
+def sketch_join_moments_batched(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
+                                with_aligned: bool = True):
+    """Batched-query sketch join: ``q_* [B, nq]`` against shared candidates
+    ``c_* [C, n]`` → (mom [B, C, 6], aligned [B, C, nq], hit [B, C, nq]);
+    aligned/hit are None unless ``with_aligned``."""
+    impl = (_sj.sketch_join_moments_batched if _on_cuda(q_kh)
+            else _ref.sketch_join_moments_batched)
+    return impl(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
+                with_aligned=with_aligned)
+
+
+def rank_moments(a, b, mask, kind: str = "spearman"):
+    """Fused masked rank transform + moments: a, b, mask f32[..., n] →
+    f32[..., 6] (``kind='rin'``: rankit-transformed ranks)."""
+    if not _on_cuda(a):
+        return _ref.rank_moments(a, b, mask, kind=kind)
+    lead, n = a.shape[:-1], a.shape[-1]
+    flat = lambda x: x.reshape(-1, n)
+    return _rt.rank_moments(flat(a), flat(b), flat(mask), kind).reshape(*lead, 6)
+
+
+def qn_correlation(a, b, mask):
+    """Qn robust correlation per row: a, b, mask f32[..., n] → f32[...]."""
+    if not _on_cuda(a):
+        return _ref.qn_correlation(a, b, mask)
+    lead, n = a.shape[:-1], a.shape[-1]
+    flat = lambda x: x.reshape(-1, n)
+    return _rt.qn_correlation(flat(a), flat(b), flat(mask)).reshape(lead)
+
+
+# moment → statistics helpers shared by the engine
+pearson_from_moments = _ref.pearson_from_moments
+hoeffding_from_moments = _ref.hoeffding_from_moments

@@ -1,0 +1,276 @@
+"""Plain PyTorch twins of the port's CUDA kernels.
+
+Each function here computes what its kernel computes, with ordinary tensor
+operations. They are the CPU path of `repro_torch.kernels.ops` and the
+oracle the kernels are held against on the card; the tests hold them
+against the JAX package's oracles. Masks are 0/1: a slot is valid where its
+mask is > 0.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import hashing
+
+
+#: float32 3.4e38, the reference's 'vacuous bound' sentinel
+_BIG = float(np.float32(3.4e38))
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.take_along_dim(x, idx, dim=-1)
+
+
+# ----------------------------------------------------------------------------
+# sketch_join: key intersection + paired moments
+# ----------------------------------------------------------------------------
+
+def sketch_join_moments_batched(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
+                                with_aligned: bool = True):
+    """Intersect each query sketch (``q_* [B, nq]``, keys as int32 bit
+    patterns) with every candidate sketch (``c_* [C, n]``) and return
+
+      mom      f32[B, C, 6] = (m, Σa, Σb, Σa², Σb², Σab) over matched pairs
+      aligned  f32[B, C, nq]: Σ of candidate values whose key equals query
+               slot i's key (one value: keys are distinct in a sketch)
+      hit      f32[B, C, nq]: 1 where query slot i matched
+
+    with a = query value · hit and b = aligned; ``aligned``/``hit`` are
+    None unless ``with_aligned``. Each candidate's valid keys are sorted
+    once and every query key binary-searches them."""
+    B, nq = q_kh.shape
+    C, n = c_kh.shape
+    invalid = 1 << 32   # above every hash: invalid slots never match
+    ck = torch.where(c_mask > 0, hashing.from_pattern(c_kh), invalid)
+    ck_s, perm = torch.sort(ck, dim=-1)
+    cv_s = _take(c_val, perm)
+    probe = hashing.from_pattern(q_kh).reshape(1, B * nq).expand(C, B * nq)
+    probe = probe.contiguous()
+    lo = torch.searchsorted(ck_s, probe)
+    count = torch.searchsorted(ck_s, probe, right=True) - lo
+    aligned = torch.zeros((C, B * nq), dtype=torch.float32, device=c_val.device)
+    for k in range(int(count.max()) if count.numel() else 0):
+        pos = torch.clamp(lo + k, max=n - 1)
+        aligned += torch.where(k < count, _take(cv_s, pos), 0.0)
+    qm = (q_mask > 0)[:, None, :]
+    hit = ((count > 0).reshape(C, B, nq).transpose(0, 1) & qm).to(torch.float32)
+    aligned = torch.where(qm, aligned.reshape(C, B, nq).transpose(0, 1), 0.0)
+    a = q_val[:, None, :] * hit
+    mom = torch.stack([hit.sum(-1), a.sum(-1), aligned.sum(-1),
+                       (a * a).sum(-1), (aligned * aligned).sum(-1),
+                       (a * aligned).sum(-1)], dim=-1)
+    if not with_aligned:
+        return mom, None, None
+    return mom, aligned.contiguous(), hit.contiguous()
+
+
+def pearson_from_moments(moments):
+    """Pearson r per candidate from the 6 accumulated moments."""
+    m, sa, sb, saa, sbb, sab = moments.unbind(-1)
+    msafe = torch.clamp(m, min=1.0)
+    mu_a, mu_b = sa / msafe, sb / msafe
+    cov = sab / msafe - mu_a * mu_b
+    va = torch.clamp(saa / msafe - mu_a ** 2, min=0.0)
+    vb = torch.clamp(sbb / msafe - mu_b ** 2, min=0.0)
+    den = torch.sqrt(va) * torch.sqrt(vb)
+    ok = (m >= 2) & (den > 1e-12)
+    return torch.where(ok, cov / torch.where(ok, den, 1.0), 0.0)
+
+
+def hoeffding_from_moments(moments, c_low, c_high, alpha=0.05):
+    """§4.3 CI bounds from raw moments, the variables shifted into [0, C]
+    analytically: returns (lo, hi) per candidate. ``alpha`` is taken in
+    float32, as the reference's request operand is."""
+    m, sa, sb, saa, sbb, sab = moments.unbind(-1)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=m.device)
+    msafe = torch.clamp(m, min=1.0)
+    mu_a = sa / msafe - c_low
+    mu_b = sb / msafe - c_low
+    va = saa / msafe - 2.0 * c_low * (sa / msafe) + c_low ** 2
+    vb = sbb / msafe - 2.0 * c_low * (sb / msafe) + c_low ** 2
+    vab = sab / msafe - c_low * (sa / msafe) - c_low * (sb / msafe) + c_low ** 2
+    C = torch.clamp(c_high - c_low, min=1e-30)
+    log_term = torch.log(10.0 / alpha)
+    t = torch.sqrt(log_term * C * C / (2.0 * msafe))
+    tp = torch.sqrt(log_term * C ** 4 / (2.0 * msafe))
+    num_lo = (vab - tp) - (mu_a + t) * (mu_b + t)
+    num_hi = (vab + tp) - (mu_a - t) * (mu_b - t)
+    den_lo = torch.sqrt(torch.clamp((va - tp) - (mu_a + t) ** 2, min=0.0)
+                        * torch.clamp((vb - tp) - (mu_b + t) ** 2, min=0.0))
+    den_hi = torch.sqrt(torch.clamp((va + tp) - (mu_a - t) ** 2, min=0.0)
+                        * torch.clamp((vb + tp) - (mu_b - t) ** 2, min=0.0))
+    sden = torch.sqrt(torch.clamp(va - mu_a ** 2, min=0.0)
+                      * torch.clamp(vb - mu_b ** 2, min=0.0))
+    degenerate = (den_lo <= 1e-30) | (den_hi <= 1e-30)
+    den_lo = torch.where(degenerate, sden, den_lo)
+    den_hi = torch.where(degenerate, sden, den_hi)
+
+    def _div(num, den):
+        return num / torch.clamp(den, min=1e-30)
+
+    lo = torch.where(num_lo >= 0, _div(num_lo, den_hi), _div(num_lo, den_lo))
+    hi = torch.where(num_hi >= 0, _div(num_hi, den_lo), _div(num_hi, den_hi))
+    ok = m >= 2
+    return torch.where(ok, lo, -_BIG), torch.where(ok, hi, _BIG)
+
+
+# ----------------------------------------------------------------------------
+# rank_moments: masked midranks → sufficient statistics
+# ----------------------------------------------------------------------------
+
+def _ndtri64(q: np.ndarray) -> np.ndarray:
+    """Float64 inverse normal CDF on the host (scipy when present, else
+    Acklam's rational approximation — |rel err| < 1.15e-9, which rounds to
+    the correct float32 everywhere it is used)."""
+    try:
+        from scipy.special import ndtri
+        return ndtri(q)
+    except ImportError:
+        pass
+    a = (-3.969683028665376e+01, 2.209460984245205e+02,
+         -2.759285104469687e+02, 1.383577518672690e+02,
+         -3.066479806614716e+01, 2.506628277459239e+00)
+    b = (-5.447609879822406e+01, 1.615858368580409e+02,
+         -1.556989798598866e+02, 6.680131188771972e+01,
+         -1.328068155288572e+01)
+    c = (-7.784894002430293e-03, -3.223964580411365e-01,
+         -2.400758277161838e+00, -2.549732539343734e+00,
+         4.374664141464968e+00, 2.938163982698783e+00)
+    d = (7.784695709041462e-03, 3.224671290700398e-01,
+         2.445134137142996e+00, 3.754408661907416e+00)
+    q = np.asarray(q, np.float64)
+    lo, hi = 0.02425, 1.0 - 0.02425
+    ql = np.sqrt(-2.0 * np.log(np.clip(q, 1e-300, None)))
+    qh = np.sqrt(-2.0 * np.log(np.clip(1.0 - q, 1e-300, None)))
+    poly = lambda cs, x: functools.reduce(lambda acc, ci: acc * x + ci, cs)
+    tail = lambda t: (poly(c, t) / (poly(d, t) * t + 1.0))
+    r = q - 0.5
+    s = r * r
+    mid = (poly(a, s) * r) / (poly(b, s) * s + 1.0)
+    return np.where(q < lo, tail(ql), np.where(q > hi, -tail(qh), mid))
+
+
+@functools.lru_cache(maxsize=None)
+def _rankit_table(n: int) -> np.ndarray:
+    """Rankit lookup table of the ``kind='rin'`` transform, flattened
+    ``[(n+1)·(2n+1)] f32``: entry ``m·(2n+1) + 2·rank`` holds
+    ``Φ⁻¹(clip((rank − ½)/max(m, 1), 1e-6, 1 − 1e-6))``, computed in
+    float64 on the host (ranks are half-integers ≤ n, m an integer ≤ n)."""
+    m = np.maximum(np.arange(n + 1, dtype=np.float64), 1.0)[:, None]
+    half = (np.arange(2 * n + 1, dtype=np.float64)[None, :] - 1.0) / 2.0
+    q = np.clip(half / m, 1e-6, 1.0 - 1e-6)
+    return _ndtri64(q).astype(np.float32).ravel()
+
+
+@functools.lru_cache(maxsize=None)
+def rankit_table(n: int, device: torch.device) -> torch.Tensor:
+    """`_rankit_table` as a tensor on ``device`` (the rin kernel reads it)."""
+    return torch.from_numpy(_rankit_table(n)).to(device)
+
+
+def _twice_ranks(x, valid):
+    """2 × masked midrank as an exact integer: ``2·#{x_j < x_i} +
+    #{x_j = x_i} + 1`` over valid j (sort + two binary searches)."""
+    xv = torch.where(valid, x, float("inf"))
+    xs = torch.sort(xv, dim=-1).values
+    return (torch.searchsorted(xs, xv) + torch.searchsorted(xs, xv, right=True)
+            + 1)
+
+
+def rank_moments(a, b, mask, kind: str = "spearman"):
+    """Masked midranks of ``a`` and ``b`` per row (``kind='rin'``:
+    rankit-transformed through `_rankit_table`), reduced to
+    ``[m, Σrₐ, Σr_b, Σrₐ², Σr_b², Σrₐr_b]``. a, b, mask f32[..., n] →
+    f32[..., 6]. Rows without valid slots give zeros."""
+    if kind not in ("spearman", "rin"):
+        raise ValueError(f"unknown rank_moments kind: {kind!r}")
+    lead, n = a.shape[:-1], a.shape[-1]
+    a2, b2 = a.reshape(-1, n), b.reshape(-1, n)
+    w2 = mask.reshape(-1, n) > 0
+    m = w2.sum(-1)
+    out = torch.zeros((a2.shape[0], 6), dtype=torch.float32, device=a.device)
+    live = torch.nonzero(m > 0).squeeze(-1)
+    w, ml = w2[live], m[live]
+    ta, tb = _twice_ranks(a2[live], w), _twice_ranks(b2[live], w)
+    if kind == "rin":
+        tab = rankit_table(n, a.device)
+        base = (ml * (2 * n + 1))[:, None]
+        ra = torch.where(w, tab[base + ta], 0.0)
+        rb = torch.where(w, tab[base + tb], 0.0)
+    else:
+        ra = torch.where(w, ta.to(torch.float32) * 0.5, 0.0)
+        rb = torch.where(w, tb.to(torch.float32) * 0.5, 0.0)
+    out[live] = torch.stack([ml.to(torch.float32), ra.sum(-1), rb.sum(-1),
+                             (ra * ra).sum(-1), (rb * rb).sum(-1),
+                             (ra * rb).sum(-1)], dim=-1)
+    return out.reshape(*lead, 6)
+
+
+# ----------------------------------------------------------------------------
+# qn_correlation: Shevlyakov–Oja robust correlation, sort + bisection
+# ----------------------------------------------------------------------------
+
+#: bit pattern of the largest finite float32
+MAX_FINITE_BITS = int(np.float32(np.finfo(np.float32).max).view(np.int32))
+QN_CONSTANT = float(np.float32(2.21914))
+
+
+def _qn_scale_rows(x, valid):
+    """Per-row Qn scale: 2.21914 · the kq-th smallest valid pairwise
+    difference, h = ⌊m/2⌋+1, kq = max(h(h−1)/2, 1). The row is sorted once;
+    31 bisection steps over the bit patterns of non-negative float32 each
+    count the pairs with ``x_j ≤ x_i + t`` by binary search."""
+    R, n = x.shape
+    xs = torch.sort(torch.where(valid, x, float("inf")), dim=-1).values
+    m = valid.sum(-1)
+    h = m // 2 + 1
+    kq = torch.clamp(h * (h - 1) // 2, min=1)
+    idx = torch.arange(n, device=x.device)
+    ivalid = idx[None, :] < m[:, None]
+    lo = torch.zeros(R, dtype=torch.int32, device=x.device)
+    hi = torch.full((R,), MAX_FINITE_BITS, dtype=torch.int32, device=x.device)
+    for _ in range(31):
+        mid = lo + (hi - lo) // 2
+        t = mid.view(torch.float32)
+        probe = torch.where(ivalid, xs + t[:, None], float("-inf"))
+        pos = torch.searchsorted(xs, probe, right=True)
+        c = torch.clamp(torch.minimum(pos, m[:, None]) - idx - 1, min=0)
+        hit = c.sum(-1) >= kq
+        lo = torch.where(hit, lo, mid + 1)
+        hi = torch.where(hit, mid, hi)
+    kth = hi.view(torch.float32)
+    # kq beyond the valid pair count leaves hi at max-finite → scale 0
+    return torch.where(kth >= _BIG, 0.0, kth) * QN_CONSTANT
+
+
+def qn_correlation(a, b, mask):
+    """Per-row Qn robust correlation (Shevlyakov & Oja): scales of a and b
+    standardise them, then r = (Qn(u)² − Qn(v)²)/(Qn(u)² + Qn(v)²) for
+    u, v = (a_z ± b_z)/√2. Degenerate scales give 0; r is clipped to
+    [−1, 1]. a, b, mask f32[..., n] → f32[...]. Rows with fewer than two
+    valid slots give 0 and are skipped."""
+    lead, n = a.shape[:-1], a.shape[-1]
+    a2, b2 = a.reshape(-1, n), b.reshape(-1, n)
+    w2 = mask.reshape(-1, n) > 0
+    out = torch.zeros(a2.shape[0], dtype=torch.float32, device=a.device)
+    live = torch.nonzero(w2.sum(-1) >= 2).squeeze(-1)
+    a2, b2, w = a2[live], b2[live], w2[live]
+    R = a2.shape[0]
+    ww = torch.cat([w, w])
+    s = _qn_scale_rows(torch.cat([a2, b2]), ww)
+    sa, sb = s[:R], s[R:]
+    ok = (sa > 1e-12) & (sb > 1e-12)
+    az = a2 / torch.where(ok, sa, 1.0)[:, None]
+    bz = b2 / torch.where(ok, sb, 1.0)[:, None]
+    inv_sqrt2 = float(np.float32(1.0 / np.sqrt(2.0)))
+    q = _qn_scale_rows(torch.cat([(az + bz) * inv_sqrt2,
+                                  (az - bz) * inv_sqrt2]), ww)
+    qu, qv = q[:R], q[R:]
+    num = qu * qu - qv * qv
+    den = qu * qu + qv * qv
+    r = torch.where(den > 1e-12, num / torch.where(den > 1e-12, den, 1.0), 0.0)
+    out[live] = torch.clamp(torch.where(ok, r, 0.0), -1.0, 1.0)
+    return out.reshape(lead)

@@ -1,0 +1,55 @@
+"""The port stands alone: importing every module of ``repro_torch`` loads
+neither JAX nor the JAX package, and its entry points refuse to run
+without a device when no CUDA card is present."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+_SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_GUARD = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in mods:
+    importlib.import_module(name)
+assert len(mods) >= 15, mods
+assert "jax" not in sys.modules, "jax was imported"
+bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+assert not bad, bad
+print("ok", len(mods))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(_SRC))
+    out = subprocess.run([sys.executable, "-c", _GUARD], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_need_a_device_without_cuda(monkeypatch):
+    """With no card, an entry point called without ``device=`` raises
+    instead of falling back to the CPU."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import multi_column_group
+    from repro_torch.engine import index as TI
+    from repro_torch.engine import serve as TSV
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tables = [multi_column_group(np.random.default_rng(0), n_cols=2,
+                                 n_max=600)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TI.build_index(tables, n=16)
+    index = TI.build_index(tables, n=16, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSV.Server(index)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSV.build_query_sketches([tables[0].keys], [tables[0].values[0]], n=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.index_from_reference(index.shard, index.names, 16)

@@ -1,0 +1,232 @@
+"""The port's kernels: each plain PyTorch twin against the JAX package's
+oracle (`repro.kernels.ref`) and against the Pallas kernel body run by the
+interpreter (`repro.kernels.ops` with ``KernelConfig("interpret")``), at
+the JAX package's own tolerances; each CUDA kernel against its twin on the
+card (marked ``gpu``: skips without one).
+
+The JAX side is imported through the ``jx`` fixture, so on a machine with
+only the card's software the ``gpu`` tests still collect and run.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rank_transform as RT
+from repro_torch.kernels import sketch_join as SJ
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ops as jops, ref as jref
+    from repro.kernels.ops import KernelConfig
+    return SimpleNamespace(jnp=jax.numpy, ops=jops, ref=jref,
+                           interp=KernelConfig("interpret"))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _join_inputs(rng, B, nq, n, C):
+    """Query/candidate sketches with planted overlaps and 85% masks (keys
+    from 2³⁰, so distinct within a sketch, as the build guarantees)."""
+    draw = lambda k: rng.integers(0, 1 << 30, size=k)
+    qk = np.stack([draw(nq) for _ in range(B)]).astype(np.uint32)
+    ck = np.stack([draw(n) for _ in range(C)]).astype(np.uint32)
+    ov = min(nq, n) // 2
+    ck[0, :ov] = qk[0, :ov]
+    if C > 3:
+        ck[3, :ov // 2] = qk[-1, ov // 2:ov]
+    qv = rng.normal(size=(B, nq)).astype(np.float32)
+    cv = rng.normal(size=(C, n)).astype(np.float32)
+    qm = (rng.random((B, nq)) < 0.85).astype(np.float32)
+    cm = (rng.random((C, n)) < 0.85).astype(np.float32)
+    return qk, qv, qm, ck, cv, cm
+
+
+def _torch_join_args(qk, qv, qm, ck, cv, cm, device="cpu"):
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return (t(qk.view(np.int32)), t(qv), t(qm), t(ck.view(np.int32)), t(cv),
+            t(cm))
+
+
+def _rank_inputs(rng, R, n):
+    """Adversarial rows: heavy ties, random masks, an all-masked row, a
+    single-survivor row and an all-ties row."""
+    a = np.round(rng.normal(size=(R, n)) * 2).astype(np.float32) / 2
+    b = (0.6 * a + rng.normal(size=(R, n))).astype(np.float32)
+    mask = (rng.random((R, n)) < 0.75).astype(np.float32)
+    mask[0] = 0.0
+    mask[1] = 0.0
+    mask[1, 3] = 1.0
+    a[2] = 1.5
+    return a, b, mask
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+# ----------------------------------------------------------------------------
+# twins against the JAX package
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,nq,n,C", [(1, 64, 64, 8), (3, 128, 96, 13)])
+def test_sketch_join_twin_matches_reference(rng, jx, B, nq, n, C):
+    """Twin == `ref.sketch_join_moments_batched` at 1e-5
+    (tests/test_kernels.py's tolerance)."""
+    inp = _join_inputs(rng, B, nq, n, C)
+    mom, al, hit = ref.sketch_join_moments_batched(*_torch_join_args(*inp))
+    jm, ja, jh = jx.ref.sketch_join_moments_batched(
+        *[jx.jnp.asarray(x) for x in inp])
+    _close(mom, jm, 1e-5)
+    _close(al, ja, 1e-5)
+    _close(hit, jh, 1e-5)
+    assert hit.sum() > 0   # the planted overlap matched
+
+
+def test_sketch_join_twin_matches_pallas_interpret(rng, jx):
+    """Twin == the Pallas kernel body (interpret mode), batched by vmap."""
+    inp = _join_inputs(rng, 2, 64, 64, 8)
+    mom, al, hit = ref.sketch_join_moments_batched(*_torch_join_args(*inp))
+    jm, ja, jh = jx.ops.sketch_join_moments_batched(
+        *[jx.jnp.asarray(x) for x in inp], jx.interp)
+    _close(mom, jm, 1e-5)
+    _close(al, ja, 1e-5)
+    _close(hit, jh, 1e-5)
+
+
+def test_sketch_join_without_aligned(rng):
+    """Moments-only calls (pearson) give the same moments."""
+    args = _torch_join_args(*_join_inputs(rng, 2, 32, 32, 5))
+    full = ref.sketch_join_moments_batched(*args)
+    lean = ref.sketch_join_moments_batched(*args, with_aligned=False)
+    assert lean[1] is None and lean[2] is None
+    torch.testing.assert_close(lean[0], full[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind,tol", [("spearman", 1e-6), ("rin", 2e-5)])
+def test_rank_moments_twin_matches_reference(rng, jx, kind, tol):
+    """Twin == `ref.rank_moments` (tests/test_rank_moments.py: 1e-6
+    spearman, 2e-5 rin — the same f64 rankit table on both sides)."""
+    a, b, mask = _rank_inputs(rng, 12, 64)
+    got = ref.rank_moments(*(torch.from_numpy(x) for x in (a, b, mask)),
+                           kind=kind)
+    want = jx.ref.rank_moments(*(jx.jnp.asarray(x) for x in (a, b, mask)),
+                               kind=kind)
+    _close(got, want, tol)
+
+
+def test_rank_moments_twin_matches_pallas_interpret(rng, jx):
+    """Spearman twin == the Pallas kernel body at 1e-6. (The body's rin
+    epilogue does not run under this interpreter: its in-register ``ndtri``
+    captures constants, which ``pallas_call`` refuses; rin is held against
+    the reference's table above.)"""
+    a, b, mask = _rank_inputs(rng, 9, 32)
+    got = ref.rank_moments(*(torch.from_numpy(x) for x in (a, b, mask)))
+    want = jx.ops.rank_moments(*(jx.jnp.asarray(x) for x in (a, b, mask)),
+                               "spearman", jx.interp)
+    _close(got, want, 1e-6)
+
+
+def test_qn_twin_matches_reference_and_pallas(rng, jx):
+    """Twin == `ref.qn_correlation` and the Pallas body at 5e-5
+    (tests/test_rank_moments.py), degenerate rows included."""
+    a, b, mask = _rank_inputs(rng, 6, 16)
+    got = ref.qn_correlation(*(torch.from_numpy(x) for x in (a, b, mask)))
+    args = [jx.jnp.asarray(x) for x in (a, b, mask)]
+    _close(got, jx.ref.qn_correlation(*args), 5e-5)
+    _close(got, jx.ops.qn_correlation(*args, jx.interp), 5e-5)
+    assert got[0] == 0 and got[1] == 0   # no valid pair → r = 0
+
+
+def test_moment_statistics_match_reference(rng, jx):
+    """pearson_from_moments and hoeffding_from_moments == the reference on
+    the same moments (degenerate m < 2 rows included)."""
+    inp = _join_inputs(rng, 2, 64, 64, 8)
+    mom, _, _ = ref.sketch_join_moments_batched(*_torch_join_args(*inp))
+    lo_c = torch.from_numpy(rng.uniform(-3, -1, size=(2, 8)).astype(np.float32))
+    hi_c = torch.from_numpy(rng.uniform(1, 3, size=(2, 8)).astype(np.float32))
+    jmom = jx.jnp.asarray(mom.numpy())
+    _close(ref.pearson_from_moments(mom), jx.ref.pearson_from_moments(jmom), 1e-6)
+    for alpha in (0.05, 0.2):
+        lo, hi = ref.hoeffding_from_moments(mom, lo_c, hi_c, alpha=alpha)
+        jlo, jhi = jx.ref.hoeffding_from_moments(
+            jmom, jx.jnp.asarray(lo_c.numpy()), jx.jnp.asarray(hi_c.numpy()),
+            alpha=jx.jnp.float32(alpha))
+        _close(lo, jlo, 1e-5)
+        _close(hi, jhi, 1e-5)
+
+
+def test_ops_route_cpu_tensors_to_twins(rng):
+    """CPU tensors take the twin: no kernel launch is counted."""
+    ops.reset_launches()
+    a, b, mask = (torch.from_numpy(x) for x in _rank_inputs(rng, 6, 16))
+    out = ops.rank_moments(a.reshape(2, 3, 16), b.reshape(2, 3, 16),
+                           mask.reshape(2, 3, 16))
+    assert out.shape == (2, 3, 6)
+    torch.testing.assert_close(out.reshape(6, 6), ref.rank_moments(a, b, mask))
+    assert ops.qn_correlation(a, b, mask).shape == (6,)
+    assert ops.launches() == dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors(rng):
+    """A wrapper never falls back: given CPU tensors it raises."""
+    args = _torch_join_args(*_join_inputs(rng, 1, 16, 16, 4))
+    with pytest.raises(ValueError):
+        SJ.sketch_join_moments_batched(*args)
+    a, b, mask = (torch.from_numpy(x) for x in _rank_inputs(rng, 4, 8))
+    with pytest.raises(ValueError):
+        RT.rank_moments(a, b, mask)
+    with pytest.raises(ValueError):
+        RT.qn_correlation(a, b, mask)
+
+
+# ----------------------------------------------------------------------------
+# CUDA kernels against their twins, on the card
+# ----------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nq,n,C", [(1, 64, 64, 8), (3, 100, 96, 13),
+                                      (32, 256, 256, 128),
+                                      (2, 64, SJ.MAX_N, 4)])
+def test_cuda_sketch_join_matches_twin(rng, cuda, B, nq, n, C):
+    args = _torch_join_args(*_join_inputs(rng, B, nq, n, C), device=cuda)
+    before = SJ.sketch_join_moments_batched.launches
+    got = SJ.sketch_join_moments_batched(*args)
+    lean = SJ.sketch_join_moments_batched(*args, with_aligned=False)
+    torch.cuda.synchronize()
+    assert SJ.sketch_join_moments_batched.launches == before + 2
+    want = ref.sketch_join_moments_batched(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lean[0], got[0], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,tol", [("spearman", 1e-6), ("rin", 2e-5)])
+@pytest.mark.parametrize("R,n", [(12, 64), (40, 256), (7, 100), (3, RT.MAX_N)])
+def test_cuda_rank_moments_matches_twin(rng, cuda, kind, tol, R, n):
+    a, b, mask = (torch.from_numpy(x).to(cuda) for x in _rank_inputs(rng, R, n))
+    got = RT.rank_moments(a, b, mask, kind)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.rank_moments(a, b, mask, kind),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,n", [(12, 64), (40, 256), (7, 100), (3, RT.MAX_N)])
+def test_cuda_qn_matches_twin(rng, cuda, R, n):
+    a, b, mask = (torch.from_numpy(x).to(cuda) for x in _rank_inputs(rng, R, n))
+    got = RT.qn_correlation(a, b, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.qn_correlation(a, b, mask),
+                               rtol=5e-5, atol=5e-5)
