@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's join-correlation query path on one CUDA card.
+"""Drive the PyTorch port's join-correlation query paths on one CUDA card.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports only
@@ -30,11 +30,35 @@ failure (exit code 1, no result line):
                 10, and on a 4096-column sub-index the card's
                 top-k must equal the CPU plain path's (ids except near-ties,
                 r and scores within 5e-5, m exactly).
+  6. stage-1 kernels — containment_hits (the 32-query bucket against all C
+                candidates; hits exactly equal), postings_merge (the
+                bucket's real postings windows at the corpus's W; the
+                (id, count) sets of every row equal) and postings_select
+                (the merge output at the base rung, which overflows, and at
+                the covering rung; surv, valid and n_surv bit-equal), each
+                against its twin, timed beside the twin, its bound and —
+                for postings_select — ``torch.unique``.
+  7. two-stage — with every launch count at 0, two servers on the same
+                index, ``candidates="scan"`` and ``"auto"`` (= inverted at
+                this C), warm every prune mode and serve the 64 planted
+                queries: ``prune="off"``, ``"safe"`` through both sources
+                for every scorer × estimator, and ``"topm"`` for
+                pearson/s4. Every kernel must have launched; safe and topm
+                top-k must equal off's (ids except near-ties, r and scores
+                within 5e-5, m exactly; topm because prune_m = 128 exceeds
+                every row's eligible count); ``stage1_hits`` must be equal
+                between the sources; ``search_joinable`` must rank each
+                query's own table first; and on the 4096-column sub-index
+                the card's safe/topm results through both sources must
+                equal the CPU plain path's.
 
-Output: a ``slice`` JSON line (per-request and per-bucket times), the
-card's name and power limit, a ``kernels`` JSON line, and as the last line
+Output: a ``slice`` JSON line (per-request and per-bucket times), a
+``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
+seconds, dispatch p50/p99, qps, stage counters, survivor rungs), the card's
+name and power limit, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import math
 import os
@@ -52,12 +76,18 @@ from repro_torch.data.pipeline import multi_column_group  # noqa: E402
 from repro_torch.engine import index as TI  # noqa: E402
 from repro_torch.engine import plans as PL  # noqa: E402
 from repro_torch.engine import serve as SV  # noqa: E402
+from repro_torch.engine import candidates as CD  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import containment as CT  # noqa: E402
+from repro_torch.kernels import postings as PM  # noqa: E402
 from repro_torch.kernels import rank_transform as RT  # noqa: E402
 from repro_torch.kernels import sketch_join as SJ  # noqa: E402
 
 SEED = 0
 GROUPS, COLS, ROWS, N = 4096, 32, 1024, 256
+#: the kernels of the scan path, and those stage 1 adds
+SCAN_KERNELS = ("sketch_join_moments", "rank_moments", "qn_correlation")
+STAGE1_KERNELS = ("containment_hits", "postings_merge", "postings_select")
 N_QUERIES = 64
 SUB_C = 4096
 BUCKET = 32
@@ -242,13 +272,13 @@ def top_agree(want, got, what: str):
             and np.allclose(gs[fin], ws[fin], rtol=TOL, atol=TOL)
             and np.allclose(gr, wr, rtol=TOL, atol=TOL)
             and np.array_equal(gm, wm)):
-        fail(f"{what}: card top-k scores/r/m differ from the CPU plain path")
+        fail(f"{what}: top-k scores/r/m differ")
     for q, p in zip(*np.nonzero(gi != wi)):
         row = ws[q]
         if not any(abs(row[p] - row[j]) <= TOL
                    for j in (p - 1, p + 1) if 0 <= j < row.shape[0]):
-            fail(f"{what}: query {q} rank {p}: id {gi[q, p]} on the card, "
-                 f"{wi[q, p]} on the CPU")
+            fail(f"{what}: query {q} rank {p}: id {gi[q, p]}, want "
+                 f"{wi[q, p]}")
 
 
 def device_busy(srv, keys, vals, req):
@@ -278,7 +308,7 @@ def phase_slice(index, keys, vals, best, dev):
     srv = SV.Server(index, buckets=(1, 8, BUCKET))
     ops.reset_launches()
     t0 = time.perf_counter()
-    srv.warmup()
+    srv.warmup(modes=("off",))
     t_warm = time.perf_counter() - t0
     per_req = {}
     results = {}
@@ -287,7 +317,7 @@ def phase_slice(index, keys, vals, best, dev):
         results[(req.estimator, req.scorer)] = srv.query_columns(keys, vals, request=req)
         per_req[f"{req.estimator}/{req.scorer}"] = time.perf_counter() - t0
     launches = ops.launches()
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in SCAN_KERNELS):
         fail(f"a kernel of the path was not launched: {launches}")
     # the query joins only its own table: under pearson/s1 (rank by |r|)
     # the table's best column is in the top 10, and under pearson/s4 the
@@ -343,6 +373,198 @@ def phase_slice(index, keys, vals, best, dev):
     return launches
 
 
+def phase_stage1_kernels(index, keys, vals, dev):
+    """The stage-1 kernels at the two-stage path's shapes against their
+    twins: the first 32 planted queries against the whole index."""
+    sk = SV.build_query_sketches(keys[:BUCKET], vals[:BUCKET], n=N, device=dev)
+    q_kh, _, q_mask, _, _ = TI.query_arrays(sk)
+    sh = index.shard
+    B, nq, C, n = BUCKET, q_kh.shape[1], sh.num_columns, N
+    rows = {}
+
+    args = (q_kh, q_mask, sh.key_hash, sh.mask)
+    got = CT.containment_hits_batched(*args)
+    want = ref.containment_hits_batched(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"containment_hits kernel differs from its twin in "
+             f"{int((got != want).sum())} of {got.numel()} counts")
+    if int((got >= COLS).sum()) < B * COLS:
+        fail("the planted queries do not join their own tables' columns")
+    # bytes: the candidate key and mask planes, the queries, the hits;
+    # operations: one compare per element of a sorted merge of each pair
+    rows["containment_hits"] = dict(
+        source="src/repro_torch/csrc/containment.cu",
+        replaces="src/repro/kernels/containment.py:68",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: CT.containment_hits_batched(*args), 20),
+        plain_ms=cuda_ms(lambda: ref.containment_hits_batched(*args), 2, 1),
+        library_ms=None,
+        work=(C * n * 8 + B * nq * 8 + B * C * 4, float(B * C * (nq + n))))
+
+    src = CD.InvertedSource(TI.build_postings(sh.key_hash, sh.mask), C=C, n=n)
+    cand = PL.postings_window_candidates(q_kh, q_mask, src.keys, src.cols,
+                                         src.W)
+    L = cand.shape[1]
+    mc, mn = PM.postings_merge(cand)
+    wc, wn = ref.postings_merge(cand)
+    torch.cuda.synchronize()
+    dense = lambda c, k: CD.dense_hit_counts(c.cpu().numpy(), k.cpu().numpy(), C)
+    if not (np.array_equal(dense(mc, mn), dense(wc, wn))
+            and torch.equal((mc >= 0).sum(-1), (wc >= 0).sum(-1))):
+        fail("postings_merge kernel: a row's (id, count) set differs from the twin's")
+    if not np.array_equal(dense(mc, mn), got.cpu().numpy()):
+        fail("postings_merge counts differ from the containment hits")
+    rows["postings_merge"] = dict(
+        source="src/repro_torch/csrc/postings.cu",
+        replaces="src/repro/kernels/postings.py:173",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: PM.postings_merge(cand), 50),
+        plain_ms=cuda_ms(lambda: ref.postings_merge(cand), 10),
+        library_ms=None,
+        # a comparison sort of every row
+        work=(B * L * 12, float(B * L * math.log2(L))))
+
+    floor = float(PL.request_operands(PL.Request())[3])
+    n_surv = int(ref.postings_select(mc, mn, floor, 1)[2])
+    rung = PL.prune_rung(n_surv, PL.ShapePolicy().prune_base, C)
+    for M in (PL.ShapePolicy().prune_base, rung):
+        g = PM.postings_select(mc, mn, floor, M, C)
+        w = ref.postings_select(mc, mn, floor, M)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(g, w)):
+            fail(f"postings_select kernel differs from its twin at rung {M}")
+    elig = mc[(mc >= 0) & (mn >= floor)]
+    rows["postings_select"] = dict(
+        source="src/repro_torch/csrc/postings.cu",
+        replaces="src/repro/kernels/postings.py:129",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: PM.postings_select(mc, mn, floor, rung, C), 50),
+        plain_ms=cuda_ms(lambda: ref.postings_select(mc, mn, floor, rung), 10),
+        library_ms=cuda_ms(lambda: torch.unique(elig, sorted=True), 50),
+        work=(B * L * 8 + rung * 5 + 4, float(B * L)))
+    say(f"stage-1 kernels: B={B} nq={nq} C={C} n={n} E={src.E} W={src.W} "
+        f"L={L} n_surv={n_surv} rungs=({PL.ShapePolicy().prune_base}, {rung})"
+        f" — each matches its twin")
+    return rows
+
+
+def _served(srv, sk, req):
+    """One request: (results, host seconds, its dispatch latencies)."""
+    n0 = len(srv.dispatch_log)
+    t0 = time.perf_counter()
+    out = srv.query_batch(sk, request=req)
+    dt = time.perf_counter() - t0
+    return out, dt, [t for _, _, t in list(srv.dispatch_log)[n0:]]
+
+
+def _stages(srv):
+    """{stage: (count, seconds)} of a server so far."""
+    return {k: (v["count"], v["total_s"])
+            for k, v in srv.throughput()["stages"].items()}
+
+
+def phase_two_stage(index, keys, vals, dev):
+    """prune="safe"/"topm" through both candidate sources against "off"."""
+    sk = SV.build_query_sketches(keys, vals, n=N, device=dev)
+    own = np.array([2 * i for i in range(N_QUERIES)])   # planted tables
+    # one bucket size, so every mode serves the same 32-query dispatches
+    srv = {c: SV.Server(index, PL.ShapePolicy(candidates=c), buckets=(BUCKET,))
+           for c in ("scan", "auto")}
+    if srv["auto"].candidates != "inverted":
+        fail(f"candidates='auto' resolved to {srv['auto'].candidates} at C={srv['auto'].C}")
+    t0 = time.perf_counter()
+    for s in srv.values():
+        s.warmup(modes=PL.PRUNE_MODES)
+    t_warm = time.perf_counter() - t0
+    stages0 = {c: _stages(s) for c, s in srv.items()}
+
+    ops.reset_launches()
+    requests = [PL.Request(estimator=e, scorer=sc)
+                for e in PL.ESTIMATORS for sc in PL.FAST_SCORERS]
+    modes = {"off": (srv["scan"], "off"), "safe(scan)": (srv["scan"], "safe"),
+             "safe(inverted)": (srv["auto"], "safe"),
+             "topm(scan)": (srv["scan"], "topm"),
+             "topm(inverted)": (srv["auto"], "topm")}
+    per_req = {m: {} for m in modes}
+    lat = {m: [] for m in modes}
+    results = {}
+    for req in requests:
+        name = f"{req.estimator}/{req.scorer}"
+        for m, (server, prune) in modes.items():
+            if prune == "topm" and name != "pearson/s4":
+                continue
+            out, dt, ls = _served(server, sk, dataclasses.replace(req, prune=prune))
+            results[(m, name)] = out
+            per_req[m][name] = dt
+            lat[m] += ls
+    hits = {c: s.stage1_hits(sk) for c, s in srv.items()}
+    joins = {c: s.search_joinable(keys, k=COLS, metric="containment")
+             for c, s in srv.items()}
+    launches = ops.launches()
+    if not all(v > 0 for v in launches.values()):
+        fail(f"a kernel of the two-stage path was not launched: {launches}")
+
+    for (m, name), out in results.items():
+        if m != "off":
+            top_agree(results[("off", name)], out, f"{m} {name} against off")
+        if not np.isfinite(out[0][:, 0]).all():
+            fail(f"{m} {name}: a query found no eligible candidate")
+    if not np.array_equal(hits["scan"], hits["auto"]):
+        fail("stage1_hits differ between the scan and inverted sources")
+    for c, res in joins.items():
+        if not (res.ids // COLS == own[:, None]).all():
+            fail(f"search_joinable ({c}): a query's top {COLS} are not its own table")
+    stages = {c: {k: dict(count=n - stages0[c].get(k, (0, 0.0))[0],
+                          total_s=t - stages0[c].get(k, (0, 0.0))[1])
+                  for k, (n, t) in _stages(s).items()}
+              for c, s in srv.items()}
+    survivors = [len(PL.select_survivors(hits["scan"][i:i + BUCKET], "safe"))
+                 for i in range(0, N_QUERIES, BUCKET)]
+
+    # the card against the CPU plain path on a sub-index, both sources
+    sub = TI.SketchIndex(shard=TI.IndexShard(*(t[:SUB_C] for t in (
+        index.shard.key_hash, index.shard.values, index.shard.mask,
+        index.shard.col_min, index.shard.col_max, index.shard.rows))),
+        names=index.names[:SUB_C], n=N)
+    t0 = time.perf_counter()
+    for c in ("scan", "inverted"):
+        pol = PL.ShapePolicy(candidates=c)
+        card = SV.Server(sub, pol, buckets=(1, 8, BUCKET))
+        plain = SV.Server(sub, pol, buckets=(1, 8, BUCKET), device="cpu")
+        for req in requests + [PL.Request(prune="topm")]:
+            req = req if req.prune == "topm" else dataclasses.replace(req, prune="safe")
+            top_agree(plain.query_columns(keys, vals, request=req),
+                      card.query_columns(keys, vals, request=req),
+                      f"sub-index {c} {req.prune} {req.estimator}/{req.scorer}: card vs CPU")
+    t_cpu = time.perf_counter() - t0
+
+    pct = lambda x, q: 1e3 * float(np.percentile(x, q))
+    line = dict(
+        columns=srv["scan"].C, n=N, queries=N_QUERIES, warmup_s=t_warm,
+        request_s=per_req,
+        dispatch_p50_ms={m: pct(v, 50) for m, v in lat.items()},
+        dispatch_p99_ms={m: pct(v, 99) for m, v in lat.items()},
+        qps={m: N_QUERIES * len(v) / sum(v.values()) for m, v in per_req.items()},
+        stages=stages,
+        # the scan server's "scan" stage also counts its off dispatches
+        fallback_scans={
+            "scan": stages["scan"].get("scan", {}).get("count", 0) - len(lat["off"]),
+            "auto": stages["auto"].get("scan", {}).get("count", 0)},
+        survivors_per_32_queries=survivors,
+        safe_rung_scan=[PL.prune_rung(max(n, srv["scan"].k_max),
+                                      PL.ShapePolicy().prune_base, srv["scan"].C)
+                        for n in survivors],
+        fused_rung=srv["auto"]._fused_rung, window=srv["auto"].source().W,
+        launches=launches, sub_index_check_s=t_cpu)
+    say("two_stage " + json.dumps(line))
+    say(f"two-stage: off == safe(scan) == safe(inverted) for {len(requests)} "
+        f"requests × {N_QUERIES} queries, topm == off for pearson/s4; "
+        f"stage1_hits equal across sources; joinability finds own tables; "
+        f"card == CPU plain path on {SUB_C} columns")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -375,12 +597,16 @@ def main() -> None:
     del groups
     rows = phase_kernels(index, bucket, dev)
     launches = phase_slice(index, keys, vals, best, dev)
+    rows.update(phase_stage1_kernels(index, keys, vals, dev))
+    launches.update({k: v for k, v in phase_two_stage(index, keys, vals, dev).items()
+                     if k in STAGE1_KERNELS})
 
     kernels = []
     for name, row in rows.items():
         b, by = bound_ms(*row.pop("work"))
+        row.setdefault("library_ms", None)
         kernels.append(dict(name=name, route="cuda", launches=launches[name],
-                            bound_ms=b, bound_by=by, library_ms=None, **row))
+                            bound_ms=b, bound_by=by, **row))
     say(card)
     say(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

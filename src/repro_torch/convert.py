@@ -1,7 +1,7 @@
 """Carry state from the JAX engine into the port.
 
-The state of this system is its index (and, for a query, its sketches),
-not weights. These take the reference's arrays as numpy — any object with
+The state of this system is its index (its planes, and the inverted
+postings beside them) and, for a query, its sketches — not weights. These take the reference's arrays as numpy — any object with
 the named attributes, such as ``repro.engine.index.IndexShard`` or a
 ``repro.core.sketch.CorrelationSketch`` — so both engines can serve the
 same index.
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.core.sketch import Agg, CorrelationSketch
-from repro_torch.engine.index import IndexShard, SketchIndex
+from repro_torch.engine.index import IndexShard, Postings, SketchIndex
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -41,6 +41,17 @@ def index_from_reference(shard, names: Sequence[str], n: int,
                          col_max=_f32(shard.col_max, dev),
                          rows=_f32(shard.rows, dev)),
         names=list(names), n=int(n))
+
+
+def postings_from_reference(keys, cols, used: int,
+                            device: D.DeviceLike = None) -> Postings:
+    """The port's `Postings` for a reference layout: ``keys`` u32 [E]
+    (ascending, PAD_KEY tail), ``cols`` i32 [E] and the live prefix
+    ``used`` — such as ``repro.engine.index.Postings``'s fields."""
+    dev = D.resolve(device)
+    return Postings(keys=_u32_as_int64(keys, dev),
+                    cols=torch.from_numpy(np.array(cols, np.int32)).to(dev),
+                    used=int(used))
 
 
 def sketches_from_reference(sk, device: D.DeviceLike = None

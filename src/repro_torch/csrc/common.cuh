@@ -1,7 +1,8 @@
 // Block-level helpers shared by the port's kernels: deterministic sums
 // (a fixed shuffle tree, then warp 0 over the per-warp partials — no
-// atomics, so a result never depends on scheduling) and a bitonic sort of a
-// power-of-two array in shared memory.
+// atomics, so a result never depends on scheduling), an exclusive prefix
+// sum of one int per thread, and a bitonic sort of a power-of-two array in
+// shared (or the block's own global) memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,6 +39,34 @@ __device__ void block_sum(T (&v)[N], T* scratch) {
       v[k] = warp_sum(x);
     }
   }
+}
+
+// Exclusive prefix sum over the block of one int per thread, in thread
+// order; *total receives the block's sum. scratch: kMaxWarps ints of shared
+// memory. Every thread of the block must call it, and blockDim.x must be a
+// multiple of 32.
+__device__ inline int block_exclusive_scan(int x, int* scratch, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  int incl = x;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  __syncthreads();  // scratch may still be read by a previous call
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < nwarps ? scratch[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t += y;
+    }
+    scratch[lane] = t;
+  }
+  __syncthreads();
+  *total = scratch[nwarps - 1];
+  return incl - x + (warp > 0 ? scratch[warp - 1] : 0);
 }
 
 // Ascending bitonic sort of keys[0..np2) (np2 a power of two), carrying

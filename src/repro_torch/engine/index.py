@@ -5,12 +5,17 @@ planes scanned brute force:
     key_hash  i32[C, n]  (the 32-bit hash's bit pattern; PAD_KEY in padding)
     values    f32[C, n]    mask  f32[C, n]
     col_min, col_max, rows  f32[C]
+
+Beside it, two derived layouts serve stage 1 of two-stage retrieval
+(DESIGN.md §5, §7): `KeyMinima` (per-column KMV count and threshold, for
+the joinability estimates) and `Postings` (the inverted key index).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import device as D
@@ -89,3 +94,80 @@ def build_index(tables: Sequence, *, n: int = 256, agg: Agg = Agg.MEAN,
                        col_max=fill(sk.col_max, 0.0),
                        rows=fill(sk.rows, 0.0))
     return SketchIndex(shard=shard, names=names, n=n)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyMinima:
+    """Per-candidate KMV key-minima layout (host numpy, O(C) scalars): the
+    stored-minima count ``k_C`` and the threshold ``τ_C`` (the k_C-th
+    smallest Fibonacci value, raw uint32). With a stage-1 hit count they
+    give the `repro_torch.core.containment` estimates without reading the
+    ``[C, n]`` planes again."""
+    count: np.ndarray   # int32 [C]
+    tau: np.ndarray     # uint32 [C]
+
+
+def key_minima(shard: IndexShard) -> KeyMinima:
+    """The `KeyMinima` of an index shard: one host pass over its key and
+    mask planes (τ is the largest valid Fibonacci value)."""
+    from repro_torch.core.containment import fib_u32_np
+    kh = shard.key_hash.cpu().numpy()
+    mask = shard.mask.cpu().numpy() > 0
+    fib = np.where(mask, fib_u32_np(kh), 0)
+    return KeyMinima(count=mask.sum(-1).astype(np.int32),
+                     tau=fib.max(-1).astype(np.uint32))
+
+
+@dataclasses.dataclass(frozen=True)
+class Postings:
+    """Inverted key index (DESIGN.md §7): every stored ``(key hash →
+    column)`` pair of the index, key-sorted into two flat device arrays
+
+        keys  i64 [E]   32-bit hashes in [0, 2³²), ascending; PAD_KEY in
+                        the [used, E) tail, which sorts last
+        cols  i32 [E]   owning column id per entry; −1 in the tail
+
+    with ``E = capacity × n``. Keys are held as ``int64`` values, not as the
+    planes' ``int32`` bit patterns: signed order would put PAD (pattern −1)
+    among the keys, and the window probe searches this order. An equal-key
+    run lists every column holding that key (in column order)."""
+    keys: torch.Tensor
+    cols: torch.Tensor
+    used: int
+
+    @property
+    def E(self) -> int:
+        return int(self.keys.shape[0])
+
+    def max_run(self) -> int:
+        """Longest equal-key run among live entries (the lower bound on the
+        probe's gather window W); 1 for an empty index."""
+        if self.used == 0:
+            return 1
+        _, runs = torch.unique_consecutive(self.keys[:self.used],
+                                           return_counts=True)
+        return int(runs.max())
+
+
+def build_postings(key_hash: torch.Tensor, mask: torch.Tensor,
+                   capacity: Optional[int] = None) -> Postings:
+    """The `Postings` of ``[C, n]`` key planes (int32 patterns) and masks,
+    on their device: one stable sort of the valid keys, so equal keys keep
+    column order. ``capacity`` (default C) sets E = capacity · n."""
+    kh = hashing.from_pattern(key_hash)
+    C, n = kh.shape
+    cap = C if capacity is None else int(capacity)
+    if cap < C:
+        raise ValueError(f"capacity {cap} is below the {C} columns")
+    live = (mask > 0) & (kh != PAD_KEY)
+    cols_idx = torch.arange(C, dtype=torch.int32,
+                            device=kh.device)[:, None].expand(C, n)[live]
+    keys, order = torch.sort(kh[live], stable=True)
+    used = int(keys.shape[0])
+    out_keys = torch.full((cap * n,), PAD_KEY, dtype=torch.int64,
+                          device=kh.device)
+    out_cols = torch.full((cap * n,), -1, dtype=torch.int32,
+                          device=kh.device)
+    out_keys[:used] = keys
+    out_cols[:used] = cols_idx[order]
+    return Postings(keys=out_keys, cols=out_cols, used=used)

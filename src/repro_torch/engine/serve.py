@@ -14,12 +14,22 @@
     times one dispatch of every bucket; `plan_batches` then covers a batch
     with the cheapest mix of buckets (exact DP over those timings);
   * **per-bucket score_chunk** — large buckets shrink the candidate block
-    so the ``[B, chunk, nq]`` aligned tensors stay bounded.
+    so the ``[B, chunk, nq]`` aligned tensors stay bounded;
+  * **two-stage retrieval** (DESIGN.md §5, §7, §11) — ``prune="safe"``
+    scores only candidates whose exact key-intersection size clears the
+    eligibility floor, ``prune="topm"`` each row's M best by that size;
+    stage 1 comes from the configured candidate source (containment scan
+    or inverted postings). Through the inverted source, ``safe`` is one
+    fused dispatch that adapts its survivor rung. Both fall back to the
+    full scan when no rung below C holds the survivors (the reference's
+    semantics), and every stage counts in ``throughput()["stages"]``;
+  * **joinability search** — `stage1_hits` and `search_joinable` rank
+    columns by containment, Jaccard, join size or hits (§2.1/§3.3).
 
-Request semantics (k, estimator, scorer, α, floor) are per call; results
-come back as numpy ``[NQ, k]`` arrays (scores, ids into ``names``, r, m),
-ordered score descending then id ascending, with id −1 where no candidate
-is eligible.
+Request semantics (k, estimator, scorer, prune mode, α, floor) are per
+call; results come back as numpy ``[NQ, k]`` arrays (scores, ids into
+``names``, r, m), ordered score descending then id ascending, with id −1
+where no candidate is eligible.
 """
 from __future__ import annotations
 
@@ -33,11 +43,14 @@ import numpy as np
 import torch
 
 from repro_torch import device as D
+from repro_torch.core import containment as CT
 from repro_torch.core import hashing
 from repro_torch.core.sketch import (PAD_KEY, Agg, CorrelationSketch,
                                      build_sketch, merge)
+from repro_torch.engine import candidates as CD
 from repro_torch.engine import plans as PL
-from repro_torch.engine.index import SketchIndex, query_arrays
+from repro_torch.engine.index import (KeyMinima, SketchIndex, build_postings,
+                                      key_minima, query_arrays)
 from repro_torch.kernels import ops as K
 
 #: rows (bucket B × candidates) of one scored block: bucket B scores
@@ -46,6 +59,16 @@ from repro_torch.kernels import ops as K
 BLOCK_ROWS = 4096
 #: timed dispatches per bucket in `Server.warmup`
 COST_REPS = 2
+
+#: per-stage telemetry vocabulary (DESIGN.md §11). Device stages: "stage1"
+#: (candidate-source hit counts), "stage2" (pruned scoring), "scan" (full
+#: scan — direct or fallback), "topm" (the scan-source top-M plan), "fused"
+#: (the one-dispatch inverted safe plan); host stage: "select" (survivor
+#: selection and rung choice)
+_DEVICE_STAGES = ("stage1", "stage2", "scan", "topm", "fused")
+
+#: metrics `search_joinable` can rank by (fields of JoinabilityEstimates)
+JOIN_METRICS = ("containment", "jaccard", "join_size", "hits")
 
 
 def build_query_sketches(keys_list: Sequence[np.ndarray],
@@ -121,13 +144,44 @@ def _plan_cover(nq: int, buckets: tuple, costs: tuple) -> tuple:
     return tuple(sorted(plan))
 
 
+@dataclasses.dataclass(frozen=True)
+class JoinabilityResult:
+    """Top-k joinability search results (host numpy, all ``[NQ, k]``):
+    ``ids`` index the server's catalog (−1 in empty tail slots), ``score``
+    is the requested ranking metric, the rest are the per-result
+    `repro_torch.core.containment.JoinabilityEstimates` fields."""
+    ids: np.ndarray          # i32 [NQ, k]
+    score: np.ndarray        # f32 [NQ, k] — the requested ranking metric
+    hits: np.ndarray         # f32 [NQ, k]
+    containment: np.ndarray  # f32 [NQ, k]
+    ci_lo: np.ndarray        # f32 [NQ, k]
+    ci_hi: np.ndarray        # f32 [NQ, k]
+    jaccard: np.ndarray      # f32 [NQ, k]
+    join_size: np.ndarray    # f32 [NQ, k]
+
+    _FIELDS = ("ids", "score", "hits", "containment", "ci_lo", "ci_hi",
+               "jaccard", "join_size")
+
+
+def _host(out):
+    """Device results → host numpy (the host waits for them)."""
+    return tuple(o.cpu().numpy() for o in out)
+
+
+def _drop_ineligible(s, g, r, m):
+    """Id −1 where the score is −inf, so it never aliases a column."""
+    return s, np.where(np.isfinite(s), g, -1).astype(np.int32), r, m
+
+
 class Server:
     """Serves join-correlation queries against one static index.
 
     ``device`` defaults to the CUDA card (raising when there is none); the
     index planes are moved there once. ``policy`` is the `ShapePolicy`,
     ``request`` the default `Request` — every query method takes a per-call
-    ``request=`` override.
+    ``request=`` override. ``candidates="auto"`` resolves against the
+    index's column count here; ``fused_safe = False`` switches inverted
+    ``safe`` requests to the two-dispatch path (same survivors).
     """
 
     def __init__(self, index: SketchIndex,
@@ -145,11 +199,20 @@ class Server:
             shape = dataclasses.replace(shape, k_max=self.C)
         self.shape = shape
         self.k_max = shape.k_max
+        #: the concrete stage-1 source ("auto" resolved against C)
+        self.candidates = PL.resolve_candidates(shape.candidates, self.C)
         self.request = request if request is not None else PL.Request()
         PL.request_operands(self.request)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] <= 0:
             raise ValueError(f"buckets must be positive sizes: {buckets}")
+        self._source = None
+        #: KMV key-minima layout and its D̂_C estimates (built on first use)
+        self._minima: Optional[KeyMinima] = None
+        self._minima_dc: Optional[np.ndarray] = None
+        #: last sufficient survivor rung of the fused inverted safe plan
+        self._fused_rung: Optional[int] = None
+        self.fused_safe = True
         #: measured seconds per dispatch for each bucket (filled by warmup)
         self._bucket_cost = {}
         #: per-dispatch telemetry (bucket B, real queries, seconds), bounded
@@ -157,6 +220,9 @@ class Server:
         self._total_queries = 0
         self._total_dispatches = 0
         self._total_s = 0.0
+        #: per-stage wall seconds and counts, keyed by stage name
+        self._stage_s = {}
+        self._stage_n = {}
 
     # -- shape policy per bucket ---------------------------------------------
     def chunk_for(self, B: int) -> int:
@@ -170,6 +236,30 @@ class Server:
             return self.shape
         return dataclasses.replace(self.shape, score_chunk=chunk)
 
+    def prune_rungs(self) -> List[int]:
+        """The survivor ladder ``prune_base · 2^i``: the rungs strictly
+        below C and not below k_max (`PL.prune_rung` never picks those)."""
+        rungs: List[int] = []
+        r = max(int(self.shape.prune_base), 1)
+        while r < self.C:
+            if r >= self.k_max:
+                rungs.append(r)
+            r *= 2
+        return rungs
+
+    def source(self):
+        """The stage-1 candidate source of the resolved ``candidates``
+        choice (`repro_torch.engine.candidates`), built on first use; the
+        inverted one builds its postings on the device."""
+        if self._source is None:
+            self._source = (
+                CD.InvertedSource(build_postings(self.shard.key_hash,
+                                                 self.shard.mask),
+                                  C=self.C, n=self.n)
+                if self.candidates == "inverted" else
+                CD.ScanSource(self.shard))
+        return self._source
+
     # -- warmup --------------------------------------------------------------
     def _dummy_queries(self, B: int):
         z = lambda *s: torch.zeros(s, dtype=torch.float32, device=self.device)
@@ -177,19 +267,45 @@ class Server:
                         device=self.device)
         return kh, z(B, self.n), z(B, self.n), z(B), z(B)
 
-    def warmup(self) -> None:
-        """Build and load the kernels, run every bucket once, then time
-        `COST_REPS` dispatches of each (empty queries under the default
-        request) for `plan_batches`."""
+    def warmup(self, modes: Optional[Sequence[str]] = None) -> None:
+        """Build and load the kernels, run every plan of every requested
+        prune mode (default: all) once per bucket — the scan, and for
+        ``safe``/``topm`` the candidate source, every survivor rung of the
+        pruned plan and, through the inverted source, of the fused plan —
+        then time `COST_REPS` dispatches of each bucket (empty queries under
+        the default request, in its prune mode when warmed) for
+        `plan_batches`."""
+        modes = tuple(modes) if modes is not None else PL.PRUNE_MODES
+        for mode in modes:
+            PL.request_operands(dataclasses.replace(self.request, prune=mode))
         K.load_kernels(self.device)
-        ops = PL.request_operands(self.request)
+        cost_req = (self.request if self.request.prune in modes else
+                    dataclasses.replace(self.request, prune=modes[0]))
+        ops = PL.request_operands(cost_req)
+        inv = self.candidates == "inverted"
         for B in self.buckets:
             qa = self._dummy_queries(B)
-            self._run(qa, B, ops)
+            shape = self.shape_for(B)
+            if "off" in modes or "safe" in modes or (inv and "topm" in modes):
+                self._scan(qa, B, ops)
+            if "topm" in modes and not inv:
+                _host(PL.topm(*qa, self.shard, shape, ops))
+            if "safe" in modes or "topm" in modes:
+                src = self.source()
+                src.warmup(B)
+                for M in self.prune_rungs():
+                    idx = torch.zeros((M,), dtype=torch.int32,
+                                      device=self.device)
+                    ok = torch.zeros((M,), dtype=torch.bool,
+                                     device=self.device)
+                    _host(PL.pruned(*qa, self.shard, idx, ok, shape, ops))
+                    if "safe" in modes and inv:
+                        _host(PL.inverted(*qa, self.shard, src.keys, src.cols,
+                                          src.W, M, shape, ops))
             ts = []
             for _ in range(COST_REPS):
                 t0 = time.perf_counter()
-                self._run(qa, B, ops)
+                self._serve(qa, B, B, cost_req, ops)
                 ts.append(time.perf_counter() - t0)
             self._bucket_cost[B] = float(np.median(ts))
 
@@ -212,19 +328,110 @@ class Server:
         return list(_plan_cover(nq, self.buckets, costs))
 
     # -- dispatch ------------------------------------------------------------
-    def _run(self, qa, B: int, ops):
-        """One bucket-B scan, results on the host (which waits for it)."""
-        out = PL.scan(*qa, self.shard, self.shape_for(B), ops)
-        return tuple(o.cpu().numpy() for o in out)
+    def _stage(self, name: str, t0: float) -> None:
+        """Count one run of stage ``name`` begun at ``t0`` (host clock)."""
+        self._stage_s[name] = (self._stage_s.get(name, 0.0)
+                               + time.perf_counter() - t0)
+        self._stage_n[name] = self._stage_n.get(name, 0) + 1
 
-    def _dispatch(self, qa, nq: int, B: int, ops):
-        """Pad a ≤B slice of queries to the bucket, scan, slice back."""
-        pad = B - nq
-        if pad:
-            qa = tuple(torch.cat([a, a[nq - 1:nq].expand((pad,) + a.shape[1:])])
-                       for a in qa)
+    def _scan(self, qa, B: int, ops):
+        """The full scan of a bucket-B batch (direct, or the fallback of a
+        survivor set no rung below C holds)."""
         t0 = time.perf_counter()
-        out = self._run(qa, B, ops)
+        out = _host(PL.scan(*qa, self.shard, self.shape_for(B), ops))
+        self._stage("scan", t0)
+        return _drop_ineligible(*out)
+
+    def _serve(self, qa, nq: int, B: int, req: PL.Request, ops):
+        """One padded bucket-B batch under ``req``'s prune mode; ``nq`` real
+        rows. Results on the host."""
+        inv = self.candidates == "inverted"
+        if req.prune == "topm":
+            if inv:
+                return self._prune_and_score(qa, nq, B, req, ops, "topm")
+            t0 = time.perf_counter()
+            out = _host(PL.topm(*qa, self.shard, self.shape_for(B), ops))
+            self._stage("topm", t0)
+            return _drop_ineligible(*out)
+        if req.prune == "safe":
+            if inv and self.fused_safe:
+                return self._dispatch_safe_fused(qa, B, ops)
+            return self._prune_and_score(qa, nq, B, req, ops, "safe")
+        return self._scan(qa, B, ops)
+
+    def _prune_and_score(self, qa, nq: int, B: int, req: PL.Request, ops,
+                         prune: str):
+        """The two-dispatch path: source hit counts → host survivor
+        selection over the ``nq`` real rows (bucket padding must not widen
+        the set) → rung → pruned scoring, or the scan when no rung below C
+        holds the survivors."""
+        t0 = time.perf_counter()
+        hits = self.source().hit_counts(qa)[:nq]
+        self._stage("stage1", t0)
+        t0 = time.perf_counter()
+        surv = PL.select_survivors(hits, prune=prune,
+                                   min_sample=req.min_sample,
+                                   prune_m=self.shape.prune_m)
+        rung = PL.prune_rung(max(len(surv), self.k_max),
+                             self.shape.prune_base, self.C)
+        self._stage("select", t0)
+        if rung is None:
+            return self._scan(qa, B, ops)
+        t0 = time.perf_counter()
+        idx = np.zeros((rung,), np.int32)
+        idx[:len(surv)] = surv
+        valid = np.arange(rung) < len(surv)
+        out = _host(PL.pruned(*qa, self.shard,
+                              torch.from_numpy(idx).to(self.device),
+                              torch.from_numpy(valid).to(self.device),
+                              self.shape_for(B), ops))
+        self._stage("stage2", t0)
+        return _drop_ineligible(*out)
+
+    def _dispatch_safe_fused(self, qa, B: int, ops):
+        """``safe`` through the inverted source as one device dispatch
+        (`PL.inverted`). It runs at the last sufficient rung (seeded at the
+        base rung); when the survivor union overflows it (``n_surv > M``)
+        it re-runs once at the exact covering rung — ``n_surv`` does not
+        depend on M — and scans when the union outgrows the ladder.
+        Bucket-padding rows copy the last real row, so they leave the
+        union unchanged."""
+        rungs = self.prune_rungs()
+        if not rungs:
+            return self._scan(qa, B, ops)
+        src = self.source()
+        M = self._fused_rung if self._fused_rung in rungs else rungs[0]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            *out, n = _host(PL.inverted(*qa, self.shard, src.keys, src.cols,
+                                        src.W, M, self.shape_for(B), ops))
+            self._stage("fused", t0)
+            n = int(n)
+            need = PL.prune_rung(max(n, self.k_max), self.shape.prune_base,
+                                 self.C)
+            if n <= M:
+                self._fused_rung = need if need is not None else M
+                return _drop_ineligible(*out)
+            if need is None:
+                break               # the union outgrew the ladder: scan
+            self._fused_rung = M = need
+        return self._scan(qa, B, ops)
+
+    def _pad(self, qa, nq: int, B: int):
+        """Pad a ≤B slice of query arrays to the bucket with copies of its
+        last row (the s4 normalisation is per row, so they cannot perturb
+        real rows)."""
+        if B == nq:
+            return qa
+        return tuple(torch.cat([a, a[nq - 1:nq].expand((B - nq,) + a.shape[1:])])
+                     for a in qa)
+
+    def _dispatch(self, qa, nq: int, B: int, req: PL.Request, ops):
+        """Pad a ≤B slice of queries to the bucket, serve, slice back. A
+        two-stage request counts as one dispatch."""
+        qa = self._pad(qa, nq, B)
+        t0 = time.perf_counter()
+        out = self._serve(qa, nq, B, req, ops)
         dt = time.perf_counter() - t0
         self.dispatch_log.append((B, nq, dt))
         self._total_queries += nq
@@ -236,7 +443,8 @@ class Server:
     def query_batch(self, sketches: CorrelationSketch, *,
                     request: Optional[PL.Request] = None):
         """Serve query sketches (leading [NQ] axis) → ``[NQ, k]`` numpy
-        (scores, ids, r, m); ids index `names`, −1 where the score is −inf."""
+        (scores, ids, r, m); ids index `names`, −1 where the score is −inf;
+        ties in score go to the lower id."""
         req = request if request is not None else self.request
         if req.k > self.shape.k_max:
             raise ValueError(f"request k={req.k} exceeds ShapePolicy.k_max="
@@ -254,9 +462,12 @@ class Server:
         for B in self.plan_batches(nq):
             e = min(s + B, nq)
             parts.append(self._dispatch(tuple(a[s:e] for a in qa), e - s, B,
-                                        ops))
+                                        req, ops))
             s = e
-        sc, g, r, m = (np.concatenate(p)[:, :k] for p in zip(*parts))
+        sc, g, r, m = (np.concatenate(p) for p in zip(*parts))
+        pick = np.lexsort((g, -sc), axis=1)[:, :k]
+        sc, g, r, m = (np.take_along_axis(x, pick, axis=1)
+                       for x in (sc, g, r, m))
         kk = sc.shape[1]
         fin = np.isfinite(sc)
         out[0][:, :kk] = sc
@@ -272,14 +483,105 @@ class Server:
                                    chunk=chunk, device=self.device)
         return self.query_batch(sks, request=request)
 
+    # -- joinability (stage 1 as a workload) ---------------------------------
+    def key_minima(self) -> KeyMinima:
+        """The index's KMV key-minima layout (`engine.index.key_minima`)
+        and its D̂_C estimates, built on first use."""
+        if self._minima is None:
+            self._minima = key_minima(self.shard)
+            self._minima_dc = CT.distinct_from_minima(
+                self._minima.count, self._minima.tau, self.n)
+        return self._minima
+
+    def _hits(self, sketches: CorrelationSketch) -> np.ndarray:
+        """Exact hit counts ``[NQ, C]`` (padding columns included) from the
+        candidate source, in bucket-padded batches."""
+        qa = tuple(a.to(self.device) for a in query_arrays(sketches))
+        nq = int(qa[0].shape[0])
+        rows, s = [np.zeros((0, self.C), np.float32)], 0
+        while s < nq:
+            B = self.bucket_for(min(nq - s, self.buckets[-1]))
+            e = min(s + B, nq)
+            part = self._pad(tuple(a[s:e] for a in qa), e - s, B)
+            t0 = time.perf_counter()
+            rows.append(self.source().hit_counts(part)[:e - s])
+            self._stage("stage1", t0)
+            s = e
+        return np.concatenate(rows, axis=0)
+
+    def stage1_hits(self, sketches: CorrelationSketch) -> np.ndarray:
+        """Exact per-candidate sketch-intersection sizes ``[NQ, C]`` of
+        query sketches, over the named columns (ids index `names`)."""
+        return self._hits(sketches)[:, :len(self.names)]
+
+    def search_joinable_sketches(self, sketches: CorrelationSketch, *,
+                                 k: Optional[int] = None,
+                                 metric: str = "containment",
+                                 request: Optional[PL.Request] = None
+                                 ) -> JoinabilityResult:
+        """Top-k joinable columns of pre-built query sketches: stage-1 hit
+        counts → `repro_torch.core.containment` estimates with Hoeffding
+        CIs (at the request's α) → ranked by ``metric`` (one of
+        `JOIN_METRICS`, descending; ties to the lower id). Columns with no
+        key overlap never appear; short rows pad with id −1."""
+        if metric not in JOIN_METRICS:
+            raise ValueError(f"unknown joinability metric {metric!r}: "
+                             f"use one of {JOIN_METRICS}")
+        req = request if request is not None else self.request
+        k = int(k or req.k)
+        hits = self._hits(sketches)
+        nq = hits.shape[0]
+        minima = self.key_minima()
+        q_kh = sketches.key_hash.cpu().numpy()
+        q_mask = sketches.mask.cpu().numpy()
+        out = {f: np.zeros((nq, k), np.float32)
+               for f in JoinabilityResult._FIELDS}
+        out["ids"] = np.full((nq, k), -1, np.int32)
+        for i in range(nq):
+            est = CT.joinability_estimates(
+                hits[i], CT.query_minima(q_kh[i], q_mask[i]),
+                minima.count, minima.tau, self.n,
+                cand_distinct=self._minima_dc, alpha=req.alpha)
+            score = np.asarray(getattr(est, metric), np.float32)
+            ok = est.hits > 0
+            order = np.lexsort((np.arange(score.shape[0]),
+                                np.where(ok, -score, np.inf)))[:k]
+            order = order[ok[order]]
+            kk = order.shape[0]
+            out["ids"][i, :kk] = order
+            out["score"][i, :kk] = score[order]
+            for f in JoinabilityResult._FIELDS[2:]:
+                out[f][i, :kk] = np.asarray(getattr(est, f),
+                                            np.float32)[order]
+        return JoinabilityResult(**out)
+
+    def search_joinable(self, keys_list, *, k: Optional[int] = None,
+                        metric: str = "containment", chunk: int = 8192,
+                        request: Optional[PL.Request] = None
+                        ) -> JoinabilityResult:
+        """Top-k joinable columns for raw query key columns (joinability
+        needs no values)."""
+        values = [np.zeros((len(kz),), np.float32) for kz in keys_list]
+        sks = build_query_sketches(keys_list, values, n=self.n, chunk=chunk,
+                                   device=self.device)
+        return self.search_joinable_sketches(sks, k=k, metric=metric,
+                                             request=request)
+
     # -- telemetry -----------------------------------------------------------
     def throughput(self) -> dict:
-        """Lifetime totals (queries, dispatches, seconds, qps) and dispatch
-        latency percentiles over the recent-dispatch window."""
+        """Lifetime totals (queries, dispatches, seconds, qps), dispatch
+        latency percentiles over the recent-dispatch window, and the
+        per-stage breakdown: ``stages[name] = {count, total_s}`` and
+        ``device_dispatches``, the count of device stages."""
+        stages = {name: dict(count=self._stage_n.get(name, 0),
+                             total_s=self._stage_s.get(name, 0.0))
+                  for name in sorted(set(self._stage_n) | set(self._stage_s))}
+        devd = sum(self._stage_n.get(name, 0) for name in _DEVICE_STAGES)
         if not self._total_queries:
             return dict(queries=0, dispatches=0, total_s=0.0, qps=0.0,
                         dispatch_p50_ms=0.0, dispatch_p90_ms=0.0,
-                        dispatch_p99_ms=0.0, per_query_ms=0.0)
+                        dispatch_p99_ms=0.0, per_query_ms=0.0,
+                        stages=stages, device_dispatches=devd)
         lat_ms = np.array([t * 1e3 for _, _, t in self.dispatch_log])
         return dict(
             queries=self._total_queries, dispatches=self._total_dispatches,
@@ -288,4 +590,5 @@ class Server:
             dispatch_p50_ms=float(np.percentile(lat_ms, 50)),
             dispatch_p90_ms=float(np.percentile(lat_ms, 90)),
             dispatch_p99_ms=float(np.percentile(lat_ms, 99)),
-            per_query_ms=1e3 * self._total_s / self._total_queries)
+            per_query_ms=1e3 * self._total_s / self._total_queries,
+            stages=stages, device_dispatches=devd)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import containment as _ct
+from repro_torch.kernels import postings as _pm
 from repro_torch.kernels import rank_transform as _rt
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch_join as _sj
@@ -20,6 +22,9 @@ LAUNCH_COUNTERS = {
     "sketch_join_moments": _sj.sketch_join_moments_batched,
     "rank_moments": _rt.rank_moments,
     "qn_correlation": _rt.qn_correlation,
+    "containment_hits": _ct.containment_hits_batched,
+    "postings_merge": _pm.postings_merge,
+    "postings_select": _pm.postings_select,
 }
 
 
@@ -76,6 +81,30 @@ def qn_correlation(a, b, mask):
     lead, n = a.shape[:-1], a.shape[-1]
     flat = lambda x: x.reshape(-1, n)
     return _rt.qn_correlation(flat(a), flat(b), flat(mask)).reshape(lead)
+
+
+def containment_hits_batched(q_kh, q_mask, c_kh, c_mask):
+    """Stage-1 exact key-intersection counts: ``q_* [B, nq]`` against
+    ``c_* [C, n]`` (int32 key patterns, f32 masks) → hits f32[B, C]."""
+    impl = (_ct.containment_hits_batched if _on_cuda(q_kh)
+            else _ref.containment_hits_batched)
+    return impl(q_kh, q_mask, c_kh, c_mask)
+
+
+def postings_merge(cand):
+    """Per row of gathered window ids ``cand`` i32[B, L]: each distinct id
+    once with its count → (cols i32[B, L], counts f32[B, L])."""
+    impl = _pm.postings_merge if _on_cuda(cand) else _ref.postings_merge
+    return impl(cand)
+
+
+def postings_select(cols, counts, floor, M: int, C: int):
+    """The ascending union of eligible ids (count ≥ floor) across merged
+    rows, cut to rung M → (surv i32[M], valid bool[M], n_surv i32[]);
+    ids lie in [0, C)."""
+    if _on_cuda(cols):
+        return _pm.postings_select(cols, counts, floor, M, C)
+    return _ref.postings_select(cols, counts, floor, M)
 
 
 # moment → statistics helpers shared by the engine

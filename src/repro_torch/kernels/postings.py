@@ -1,0 +1,100 @@
+"""Wrappers of the Hopper postings kernels (``csrc/postings.cu``).
+
+``postings_merge`` replaces the Pallas kernel ``repro.kernels.postings.
+postings_merge`` (per row of matched window ids: each distinct id once
+with its count); ``postings_select`` replaces ``repro.kernels.postings.
+postings_select`` (the ascending union of eligible ids across rows, cut to
+a rung). Semantics: the plain twins `repro_torch.kernels.ref.
+postings_merge` / `postings_select`, which both kernels equal bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.sketch_join import check
+
+#: dynamic shared memory a merge block sorts its row in (opted in above
+#: 48 KB; the card allows 227 KB); longer rows sort in a global scratch row
+MERGE_SMEM_BYTES = 128 * 1024
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+#: C signatures
+_ARGTYPES = {
+    "postings_merge_launch": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "postings_select_launch": [_P, _P, _LL, _F, _I, _I, _P, _P, _P, _P, _P],
+}
+
+
+def _fn(name: str):
+    f = getattr(build.library("postings"), name)
+    f.argtypes = _ARGTYPES[name]
+    f.restype = _I
+    return f
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def postings_merge(cand):
+    """Launch the merge: ``cand`` i32[B, L] → (cols i32[B, L], counts
+    f32[B, L]), each row's distinct ids ascending at the front with their
+    counts, then (−1, 0)."""
+    dev = cand.device
+    if dev.type != "cuda":
+        raise ValueError(f"the postings_merge kernel runs on CUDA, not {dev}")
+    B, L = cand.shape
+    check(cand, "cand", torch.int32, (B, L), dev)
+    cols = torch.empty((B, L), dtype=torch.int32, device=dev)
+    counts = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B == 0 or L == 0:
+        return cols, counts
+    np2 = 1 << (L - 1).bit_length()
+    scratch = (None if np2 * 4 <= MERGE_SMEM_BYTES else
+               torch.empty((B, np2), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        err = _fn("postings_merge_launch")(
+            cand.data_ptr(), B, L, np2,
+            None if scratch is None else scratch.data_ptr(),
+            cols.data_ptr(), counts.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"postings_merge kernel launch failed: CUDA error {err}")
+    postings_merge.launches += 1
+    return cols, counts
+
+
+def postings_select(cols, counts, floor, M: int, C: int):
+    """Launch the select: merged ``cols`` i32[B, L] (ids in [0, C)) and
+    ``counts`` f32[B, L], float32 ``floor`` → (surv i32[M], valid bool[M],
+    n_surv i32[])."""
+    dev = cols.device
+    if dev.type != "cuda":
+        raise ValueError(f"the postings_select kernel runs on CUDA, not {dev}")
+    B, L = cols.shape
+    check(cols, "cols", torch.int32, (B, L), dev)
+    check(counts, "counts", torch.float32, (B, L), dev)
+    M, C = int(M), int(C)
+    if M < 0 or C < 0:
+        raise ValueError(f"rung M={M} and column count C={C} must be ≥ 0")
+    flags = torch.empty((max(C, 1),), dtype=torch.uint8, device=dev)
+    surv = torch.empty((M,), dtype=torch.int32, device=dev)
+    valid = torch.empty((M,), dtype=torch.bool, device=dev)
+    n_surv = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _fn("postings_select_launch")(
+            cols.data_ptr(), counts.data_ptr(), B * L,
+            float(np.float32(floor)), C, M, flags.data_ptr(),
+            surv.data_ptr(), valid.data_ptr(), n_surv.data_ptr(),
+            _stream(dev))
+    if err:
+        raise RuntimeError(f"postings_select kernel launch failed: CUDA error {err}")
+    postings_select.launches += 1
+    return surv, valid, n_surv
+
+
+postings_merge.launches = 0
+postings_select.launches = 0

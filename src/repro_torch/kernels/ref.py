@@ -67,6 +67,44 @@ def sketch_join_moments_batched(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
     return mom, aligned.contiguous(), hit.contiguous()
 
 
+
+# ----------------------------------------------------------------------------
+# containment: exact key-intersection counts (stage 1)
+# ----------------------------------------------------------------------------
+
+#: probe elements a containment step holds (bounds its [chunk, B·nq] tensors)
+_CONTAINMENT_CHUNK = 1 << 22
+
+
+def containment_hits_batched(q_kh, q_mask, c_kh, c_mask):
+    """Per query row (``q_* [B, nq]``, keys as int32 bit patterns) and
+    candidate (``c_* [C, n]``):
+
+      hits f32[B, C] = |{(i, j) : q_kh[b, i] == c_kh[c, j], both valid}|
+
+    — with keys distinct in a sketch, the intersection size of the two
+    stored key sets, i.e. the sketch-join sample size m. Each candidate's
+    valid keys are sorted and every valid query slot counts its equal keys;
+    candidates go in chunks so the probe tensors stay bounded."""
+    B, nq = q_kh.shape
+    C, n = c_kh.shape
+    dev = c_kh.device
+    invalid = 1 << 32   # above every hash: invalid slots never match
+    ck_s = torch.sort(torch.where(c_mask > 0, hashing.from_pattern(c_kh),
+                                  invalid), dim=-1).values
+    probe = hashing.from_pattern(q_kh).reshape(1, B * nq)
+    qv = (q_mask > 0).reshape(1, B * nq)
+    out = torch.zeros((C, B), dtype=torch.float32, device=dev)
+    step = max(1, _CONTAINMENT_CHUNK // max(B * nq, 1))
+    for s in range(0, C if B * nq else 0, step):
+        blk = ck_s[s:s + step]
+        pr = probe.expand(blk.shape[0], B * nq).contiguous()
+        cnt = (torch.searchsorted(blk, pr, right=True)
+               - torch.searchsorted(blk, pr))
+        cnt = torch.where(qv, cnt, 0).reshape(-1, B, nq).sum(-1)
+        out[s:s + step] = cnt.to(torch.float32)
+    return out.T.contiguous()
+
 def pearson_from_moments(moments):
     """Pearson r per candidate from the 6 accumulated moments."""
     m, sa, sb, saa, sbb, sab = moments.unbind(-1)
@@ -274,3 +312,52 @@ def qn_correlation(a, b, mask):
     r = torch.where(den > 1e-12, num / torch.where(den > 1e-12, den, 1.0), 0.0)
     out[live] = torch.clamp(torch.where(ok, r, 0.0), -1.0, 1.0)
     return out.reshape(lead)
+
+
+
+# ----------------------------------------------------------------------------
+# postings: merge gathered window ids, select the eligible union
+# ----------------------------------------------------------------------------
+
+_I32_MAX = int(np.iinfo(np.int32).max)
+
+
+def postings_merge(cand):
+    """Merge the column ids gathered from postings windows (``cand`` i32
+    ``[B, L]``, −1 in non-matching slots) into per-column hit counts:
+    ``(cols i32[B, L], counts f32[B, L])`` with each row's distinct ids
+    ≥ 0 ascending at the front, each with its multiplicity (the exact
+    key-intersection size), then (−1, 0). The reference's contract is set
+    equality per row; this layout is also the CUDA kernel's."""
+    B, L = cand.shape
+    s = torch.sort(torch.where(cand < 0, _I32_MAX, cand), dim=-1).values
+    head = torch.ones_like(s, dtype=torch.bool)
+    head[:, 1:] = s[:, 1:] != s[:, :-1]
+    head &= s != _I32_MAX
+    cnt = (torch.searchsorted(s, s, right=True)
+           - torch.searchsorted(s, s)).to(torch.float32)
+    # run heads, id-ascending, to the front of the row
+    order = torch.sort((~head).to(torch.int8), dim=-1, stable=True).indices
+    cols = torch.where(head, s, -1).gather(-1, order)
+    counts = torch.where(head, cnt, 0.0).gather(-1, order)
+    return cols.to(torch.int32), counts
+
+
+def postings_select(cols, counts, floor, M: int):
+    """Survivor selection over merged postings rows: the union across all
+    rows of the ids with ``cols ≥ 0`` and ``counts ≥ floor`` (float32),
+    ascending, into a fixed rung of M slots → ``(surv i32[M], valid
+    bool[M], n_surv i32[])``. ``surv`` holds the first min(n_surv, M)
+    survivors with zeros beyond, ``valid`` flags them, and ``n_surv``
+    counts every eligible id — n_surv > M means the rung overflowed and
+    holds the M smallest ids."""
+    dev = cols.device
+    floor = torch.tensor(float(np.float32(floor)), dtype=torch.float32)
+    elig = (cols >= 0) & (counts >= floor.to(dev))
+    ids = torch.unique(cols[elig].to(torch.int64), sorted=True)
+    n_surv = int(ids.shape[0])
+    kept = min(n_surv, int(M))
+    surv = torch.zeros((int(M),), dtype=torch.int32, device=dev)
+    surv[:kept] = ids[:kept].to(torch.int32)
+    valid = torch.arange(int(M), device=dev) < kept
+    return surv, valid, torch.tensor(n_surv, dtype=torch.int32, device=dev)

@@ -17,7 +17,10 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 15, mods
+assert len(mods) >= 24, mods
+for new in ("core.containment", "engine.candidates", "kernels.containment",
+            "kernels.postings"):
+    assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not bad, bad

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import containment as CT
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import postings as PM
 from repro_torch.kernels import rank_transform as RT
 from repro_torch.kernels import sketch_join as SJ
 
@@ -230,3 +232,75 @@ def test_cuda_qn_matches_twin(rng, cuda, R, n):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.qn_correlation(a, b, mask),
                                rtol=5e-5, atol=5e-5)
+
+
+def _containment_inputs(rng, B, nq, n, C, universe):
+    """Keys from a universe of ``universe`` values: small ones make keys
+    repeat within a sketch (every equal valid pair counts)."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    qk = rng.integers(0, universe, size=(B, nq)).astype(np.uint32)
+    ck = rng.integers(0, universe, size=(C, n)).astype(np.uint32)
+    qm = (rng.random((B, nq)) < 0.8).astype(np.float32)
+    cm = (rng.random((C, n)) < 0.8).astype(np.float32)
+    return t(qk.view(np.int32)), t(qm), t(ck.view(np.int32)), t(cm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nq,n,C,universe", [
+    (1, 64, 64, 8, 300), (3, 100, 96, 13, 100), (32, 256, 256, 4096, 1 << 20),
+    (2, 64, CT.MAX_N, 4, 3000), (40, 33, 17, 1000, 200)])
+def test_cuda_containment_matches_twin(rng, cuda, B, nq, n, C, universe):
+    """Exact: counts are integers."""
+    args = [x.to(cuda) for x in _containment_inputs(rng, B, nq, n, C,
+                                                     universe)]
+    before = CT.containment_hits_batched.launches
+    got = CT.containment_hits_batched(*args)
+    torch.cuda.synchronize()
+    assert CT.containment_hits_batched.launches == before + 1
+    assert got.sum() > 0
+    torch.testing.assert_close(got, ref.containment_hits_batched(*args),
+                               rtol=0, atol=0)
+
+
+def _window_ids(rng, B, L, ids, empty=0.5):
+    cand = rng.integers(0, ids, size=(B, L)).astype(np.int32)
+    cand[rng.random((B, L)) < empty] = -1
+    return torch.from_numpy(cand)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,ids", [
+    (1, 64, 12), (7, 192, 40), (32, 8192, 4096),
+    (4, 20000, 5000),       # past 48 KB of shared memory: opted in
+    (2, 2048 * 64, 70000),  # past the shared-memory sort: global scratch
+    (3, 1, 3)])
+def test_cuda_postings_merge_matches_twin(rng, cuda, B, L, ids):
+    """Bit-equal: the kernel writes the twin's layout (ids ascending at the
+    front, then (−1, 0))."""
+    cand = _window_ids(rng, B, L, ids).to(cuda)
+    before = PM.postings_merge.launches
+    got = PM.postings_merge(cand)
+    torch.cuda.synchronize()
+    assert PM.postings_merge.launches == before + 1
+    for g, w in zip(got, ref.postings_merge(cand)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,M,floor,C", [
+    (1, 64, 8, 1.0, 40), (4, 128, 32, 2.0, 40), (7, 192, 64, 0.0, 40),
+    (2, 64, 256, 3.0, 40), (3, 128, 16, 1e9, 40),
+    (32, 8192, 1024, 3.0, 131072), (32, 8192, 64, 3.0, 131072)])
+def test_cuda_postings_select_matches_twin(rng, cuda, B, L, M, floor, C):
+    """Bit-equal surv, valid and n_surv: overflow (n_surv > M), M > B·L,
+    floor 0 and an empty selection included. Rows are merge outputs."""
+    cols, counts = ref.postings_merge(_window_ids(rng, B, L, min(C, 4 * L)))
+    counts = torch.where(cols >= 0, torch.from_numpy(
+        rng.integers(1, 5, size=(B, L)).astype(np.float32)), 0.0)
+    cols, counts = cols.to(cuda), counts.to(cuda)
+    before = PM.postings_select.launches
+    got = PM.postings_select(cols, counts, floor, M, C)
+    torch.cuda.synchronize()
+    assert PM.postings_select.launches == before + 1
+    for g, w in zip(got, ref.postings_select(cols, counts, floor, M)):
+        assert torch.equal(g, w)
