@@ -11,8 +11,18 @@ failure (exit code 1, no result line):
   2. build    — the port's CUDA kernels build from ``src/repro_torch/csrc``.
   3. index    — a seeded corpus of 4096 ``multi_column_group`` tables × 32
                 numeric columns × 1024 rows (C = 131072 columns, keys drawn
-                from 2³⁰) is sketched on the card at n = 256; the planes of
-                its first 128 tables must equal a CPU build.
+                from 2³⁰) is sketched on the card at n = 256 with the fused
+                ingest engine (the default), which must launch hash_build;
+                the loop engine's card build must equal it bit for bit
+                (keys, masks, values and statistics: the corpus keys are
+                unique), and the planes of its first 128 tables must equal
+                a CPU build. Build seconds: fused (first and warm), loop.
+  3b. hash_build — the kernel against its twin, all three outputs bit-equal,
+                on the corpus's 4 194 304 keys, on one ingest batch's keys
+                (the path's launch shape) and on edge keys (0, 2³² − 1 and
+                the murmur preimages of the two sentinels; m = 4093); timed
+                at the batch shape beside its twin and its bound (16 bytes
+                a key).
   4. kernels  — each kernel runs at the shapes the query path gives it (a
                 32-query bucket against one 128-candidate score chunk) and
                 must match its plain PyTorch twin on the same inputs: 1e-5
@@ -51,12 +61,33 @@ failure (exit code 1, no result line):
                 query's own table first; and on the 4096-column sub-index
                 the card's safe/topm results through both sources must
                 equal the CPU plain path's.
+  8. lifecycle — with every launch count at 0, a `LiveIndex(n=256,
+                delta_cap=16384)` on the card appends groups 0–3839 in one
+                call (8 segments, the last half full) and serves the 64
+                planted queries through ``candidates="scan"`` and
+                ``"auto"`` with ``prune="safe"`` and ``"off"``: s1/s2 top-k
+                must equal a static `Server` over the index's first 122880
+                columns. Groups 3840–4095 are appended mid-serving; planted
+                queries on 8 of them must find their own table. The tables
+                of 16 planted queries are deleted: none of their columns may
+                reach a top-k, a `stage1_hits` count or `search_joinable`.
+                `compact()` leaves one segment whose planes equal the
+                index's at the surviving ids, bit for bit, and whose 12
+                scorer × estimator ``safe`` requests and off pearson/s4
+                equal a static `Server` over those columns. ``save`` and
+                ``load`` round-trip every array bit for bit and serve an
+                equal top-k. Every kernel must have launched. The same
+                mutations over the first 128 tables (``delta_cap=1024``) on
+                the card and on the CPU give equal top-k.
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
-seconds, dispatch p50/p99, qps, stage counters, survivor rungs), the card's
-name and power limit, a ``kernels`` JSON line, and as the last line
-``{"ok": true, "device": {...}}``.
+seconds, dispatch p50/p99, qps, stage counters, survivor rungs), a
+``lifecycle`` JSON line (append, delete, compact, save, load and refresh
+seconds, appended columns/s, segment counts, and 32-query call p50/p99
+with 8 segments and with 1), a ``phases`` JSON line (seconds per phase),
+the card's name and power limit, a ``kernels`` JSON line, and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -64,6 +95,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,11 +106,14 @@ import torch  # noqa: E402
 
 from repro_torch.data.pipeline import multi_column_group  # noqa: E402
 from repro_torch.engine import index as TI  # noqa: E402
+from repro_torch.engine import ingest as TG  # noqa: E402
+from repro_torch.engine import lifecycle as LC  # noqa: E402
 from repro_torch.engine import plans as PL  # noqa: E402
 from repro_torch.engine import serve as SV  # noqa: E402
 from repro_torch.engine import candidates as CD  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import containment as CT  # noqa: E402
+from repro_torch.kernels import hash_build as HB  # noqa: E402
 from repro_torch.kernels import postings as PM  # noqa: E402
 from repro_torch.kernels import rank_transform as RT  # noqa: E402
 from repro_torch.kernels import sketch_join as SJ  # noqa: E402
@@ -92,6 +127,18 @@ N_QUERIES = 64
 SUB_C = 4096
 BUCKET = 32
 TOL = 5e-5
+#: the lifecycle phase: groups of its first append, its delta capacity,
+#: planted queries on groups appended mid-serving, planted queries whose
+#: tables it deletes, and the corpus and delta capacity of its rehearsal
+#: on both devices
+LIVE_FIRST = GROUPS * 15 // 16
+LIVE_CAP = GROUPS * COLS // 8
+N_NEW = 8
+N_DELETED = 16
+MINI_GROUPS = SUB_C // COLS
+MINI_CAP = SUB_C // 4
+#: 32-query calls timed per latency sample set (safe, off)
+LAT_CALLS = (8, 4)
 #: H100 SXM data-sheet peaks: HBM bytes/s and
 #: float32 operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -158,15 +205,30 @@ def planted(groups):
     return keys, vals, best
 
 
-def phase_index(groups, dev):
+def _built(groups, dev, engine):
     t0 = time.perf_counter()
-    index = TI.build_index(groups, n=N, device=dev)
+    index = TI.build_index(groups, n=N, engine=engine, device=dev)
     torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
+    return index, time.perf_counter() - t0
+
+
+def phase_index(groups, dev):
+    ops.reset_launches()
+    index, t_cold = _built(groups, dev, "fused")
+    launched = ops.launches()["hash_build"]
+    if not launched:
+        fail("the fused index build did not launch hash_build")
     sh = index.shard
     if sh.num_columns != GROUPS * COLS:
         fail(f"index has {sh.num_columns} columns")
     planes = sum(t.numel() * t.element_size() for t in (sh.key_hash, sh.values, sh.mask))
+    loop, t_loop = _built(groups, dev, "loop")
+    for f in ("key_hash", "mask", "values", "col_min", "col_max", "rows"):
+        if not torch.equal(getattr(sh, f), getattr(loop.shard, f)):
+            fail(f"fused and loop card builds differ in {f}")
+    del loop
+    # the first build also loads every kernel it meets: time a warm one
+    t_build = _built(groups, dev, "fused")[1]
     cpu = TI.build_index(groups[:SUB_C // COLS], n=N, device="cpu").shard
     if not torch.equal(sh.key_hash[:SUB_C].cpu(), cpu.key_hash):
         fail("card-built key planes differ from the CPU build")
@@ -177,8 +239,68 @@ def phase_index(groups, dev):
         if not err <= 1e-6:
             fail(f"card-built {f} differ from the CPU build by {err}")
     say(f"index: C={sh.num_columns} n={N} planes={planes / 2**20:.1f} MiB "
-        f"build_s={t_build:.3f} (matches the CPU build on {SUB_C} columns)")
+        f"build_s={t_build:.3f} (fused, {launched} hash_build launches; "
+        f"{t_cold:.3f} the first time) loop_build_s={t_loop:.3f} (fused == "
+        f"loop on every plane; matches the CPU build on {SUB_C} columns)")
     return index
+
+
+def _edge_keys():
+    """0, 2³² − 1 and the murmur3 preimages of the key-space sentinel and of
+    the Fibonacci sentinel's preimage (murmur3 is a bijection on 32-bit
+    keys, so each step inverts)."""
+    M = 1 << 32
+    inv = lambda x: pow(int(x), -1, M)
+    rotr = lambda x, r: ((x >> r) | (x << (32 - r))) & (M - 1)
+    unxs = lambda y, s: y ^ (y >> s) ^ ((y >> s) >> s)
+
+    def preimage(target):
+        h = unxs(target, 16)
+        h = unxs((h * inv(0xC2B2AE35)) % M, 13)
+        h = unxs((h * inv(0x85EBCA6B)) % M, 16) ^ 4
+        h = ((h - 0xE6546B64) * inv(5)) % M
+        k = (rotr(h, 13) ^ 0x9747B28C) * inv(0x1B873593) % M
+        return rotr(k, 15) * inv(0xCC9E2D51) % M
+
+    fib_star = (0xFFFFFFFF * inv(2654435769)) % M
+    return np.array([0, 0xFFFFFFFF, preimage(0xFFFFFFFF), preimage(fib_star)],
+                    np.uint32)
+
+
+def phase_hash_build(groups, dev):
+    """hash_build against its twin on the corpus keys, one ingest batch's
+    keys (the path's launch shape) and edge keys; timed at the batch."""
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+    corpus_keys = as_t(np.concatenate([g.keys for g in groups]))
+    batch = TG._batches(groups)[0]
+    batch_keys = as_t(np.stack([g.keys for g in batch]))
+    edge = np.random.default_rng(SEED).integers(0, 1 << 32, size=4093,
+                                                dtype=np.uint64).astype(np.uint32)
+    edge[:4] = _edge_keys()
+    edge_keys = as_t(edge)
+    for what, keys in (("corpus", corpus_keys), ("batch", batch_keys), ("edge", edge_keys)):
+        got, want = HB.hash_build(keys), ref.hash_build(keys)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"hash_build kernel differs from its twin on the {what} keys")
+    h, fib, _ = HB.hash_build(edge_keys[:4])
+    if int(h[2]) != -1 or int(fib[3]) != -1:
+        fail("the sentinel preimages do not hash onto the sentinels")
+    m = batch_keys.numel()
+    row = dict(source="src/repro_torch/csrc/hash_build.cu",
+               replaces="src/repro/kernels/hash_build.py:66", max_abs_err=0.0,
+               ms=cuda_ms(lambda: HB.hash_build(batch_keys), 100),
+               plain_ms=cuda_ms(lambda: ref.hash_build(batch_keys), 10),
+               library_ms=None,
+               # 4 bytes in, 12 out; murmur3 + Fibonacci + convert: 24
+               # integer operations and 2 float ones a key
+               work=(16 * m, 26.0 * m))
+    corpus_ms = cuda_ms(lambda: HB.hash_build(corpus_keys), 20)
+    say(f"hash_build: corpus m={corpus_keys.numel()} ({corpus_ms:.4f} ms), "
+        f"batch {tuple(batch_keys.shape)} ({row['ms']:.4f} ms, twin "
+        f"{row['plain_ms']:.4f} ms), edge m={edge_keys.numel()} — each equals "
+        f"its twin bit for bit")
+    return {"hash_build": row}
 
 
 def kernel_inputs(groups, chunk: int):
@@ -502,7 +624,7 @@ def phase_two_stage(index, keys, vals, dev):
     joins = {c: s.search_joinable(keys, k=COLS, metric="containment")
              for c, s in srv.items()}
     launches = ops.launches()
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in SCAN_KERNELS + STAGE1_KERNELS):
         fail(f"a kernel of the two-stage path was not launched: {launches}")
 
     for (m, name), out in results.items():
@@ -565,6 +687,226 @@ def phase_two_stage(index, keys, vals, dev):
     return launches
 
 
+def _sub_index(index, ids):
+    """The static index of columns ``ids`` of ``index``, in that order."""
+    sh = index.shard
+    sel = torch.as_tensor(ids, device=sh.key_hash.device)
+    return TI.SketchIndex(shard=TI.IndexShard(*(t[sel] for t in (
+        sh.key_hash, sh.values, sh.mask, sh.col_min, sh.col_max, sh.rows))),
+        names=[index.names[i] for i in ids], n=N)
+
+
+def _calls(srv, sk, req, calls):
+    """Seconds of ``calls`` 32-query calls (cycling over the queries)."""
+    out = []
+    for c in range(calls):
+        s = (c * BUCKET) % N_QUERIES
+        part = sk.map(lambda t: t[s:s + BUCKET])
+        t0 = time.perf_counter()
+        srv.query_batch(part, request=req)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _pct(x, q):
+    return 1e3 * float(np.percentile(x, q))
+
+
+def _no_dead(what, out, dead):
+    ids = out[1] if isinstance(out, tuple) else out.ids
+    if np.isin(ids, dead).any():
+        fail(f"{what}: a deleted column reached the results")
+
+
+def mini_script(groups, keys, vals, dev):
+    """The lifecycle's mutations over the first MINI_GROUPS tables on one
+    device: append most, serve, append the rest, delete the tables of the
+    first N_DELETED planted queries, serve, compact, serve. Returns the
+    results in order."""
+    first = MINI_GROUPS * 15 // 16
+    live = LC.LiveIndex(n=N, delta_cap=MINI_CAP, device=dev)
+    srv = {c: SV.Server(live, PL.ShapePolicy(candidates=c), buckets=(BUCKET,),
+                        device=dev) for c in ("scan", "inverted")}
+    sk = SV.build_query_sketches(keys, vals, n=N, device=dev)
+    safe = PL.Request(prune="safe", scorer="s1")
+    out = []
+    live.append(groups[:first])
+    out += [srv[c].query_batch(sk, request=safe) for c in srv]
+    live.append(groups[first:MINI_GROUPS])
+    for i in range(N_DELETED):
+        live.delete(f"g{2 * i}")
+    out += [srv[c].query_batch(sk, request=safe) for c in srv]
+    live.compact()
+    out += [srv["scan"].query_batch(sk, request=PL.Request()),
+            srv["inverted"].query_batch(sk, request=PL.Request(prune="safe"))]
+    return out, live.stats()
+
+
+def phase_lifecycle(groups, index, keys, vals, dev):
+    """The live index on the card through appends, serving, deletes,
+    compaction and a snapshot, against static servers on the index."""
+    sk = SV.build_query_sketches(keys, vals, n=N, device=dev)
+    ids_first = list(range(LIVE_FIRST * COLS))
+    line = {}
+    ops.reset_launches()
+
+    # 1. one append of the first groups: 7.5 delta segments
+    live = LC.LiveIndex(n=N, delta_cap=LIVE_CAP, device=dev)
+    t0 = time.perf_counter()
+    live.append(groups[:LIVE_FIRST])
+    torch.cuda.synchronize()
+    line["append_s"] = time.perf_counter() - t0
+    line["append_cols_per_s"] = LIVE_FIRST * COLS / line["append_s"]
+    line["segments_after_append"] = live.stats()["segments"]
+    if live.stats()["segments"] != -(-LIVE_FIRST * COLS // LIVE_CAP):
+        fail(f"append made {live.stats()} segments")
+
+    # 2. serve across the segments; s1/s2 against a static server
+    srv = {c: SV.Server(live, PL.ShapePolicy(candidates=c), buckets=(BUCKET,))
+           for c in ("scan", "auto")}
+    static = {c: SV.Server(_sub_index(index, ids_first),
+                           PL.ShapePolicy(candidates=c), buckets=(BUCKET,))
+              for c in ("scan", "auto")}
+    if any(e.exec.candidates != "inverted" for e in srv["auto"]._view):
+        fail("candidates='auto' did not resolve to the inverted source per segment")
+    t0 = time.perf_counter()
+    for s in list(srv.values()) + list(static.values()):
+        s.warmup(modes=("off", "safe"), include_ladder=False)
+    line["warmup_s"] = time.perf_counter() - t0
+    checks = [(c, PL.Request(prune="safe", scorer=sc, estimator=e))
+              for c in ("scan", "auto") for sc in ("s1", "s2")
+              for e in ("pearson", "spearman", "qn")]
+    checks += [("scan", PL.Request(scorer=sc)) for sc in ("s1", "s2")]
+    for c, req in checks:
+        top_agree(static[c].query_batch(sk, request=req),
+                  srv[c].query_batch(sk, request=req),
+                  f"8 segments {c} {req.prune} {req.estimator}/{req.scorer} vs static")
+    lat8 = {"safe(inverted)": _calls(srv["auto"], sk, PL.Request(prune="safe"),
+                                     LAT_CALLS[0]),
+            "off": _calls(srv["scan"], sk, PL.Request(), LAT_CALLS[1])}
+    del static
+
+    # 3. append the rest mid-serving; queries on new groups find them
+    t0 = time.perf_counter()
+    live.append(groups[LIVE_FIRST:])
+    torch.cuda.synchronize()
+    line["append_mid_serving_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s in srv.values():
+        s.refresh()
+    line["refresh_s"] = (time.perf_counter() - t0) / len(srv)
+    new = [LIVE_FIRST + j * ((GROUPS - LIVE_FIRST) // N_NEW) for j in range(N_NEW)]
+    nk = [groups[g].keys for g in new]
+    nv = [groups[g].meta["latent"] for g in new]
+    for c, s in srv.items():
+        got = s.query_columns(nk, nv, request=PL.Request(prune="safe", scorer="s1"))
+        if not (got[1][:, 0] // COLS == np.array(new)).all():
+            fail(f"{c}: a query on a table appended mid-serving missed it: {got[1][:, 0]}")
+    line["segments_after_second_append"] = live.stats()["segments"]
+
+    # 4. delete the tables of the first N_DELETED planted queries
+    t0 = time.perf_counter()
+    gone = sum(live.delete(f"g{2 * i}") for i in range(N_DELETED))
+    line["delete_s"] = time.perf_counter() - t0
+    if gone != N_DELETED * COLS:
+        fail(f"delete tombstoned {gone} columns")
+    dead = np.array([2 * i * COLS + j for i in range(N_DELETED) for j in range(COLS)])
+    for c, s in srv.items():
+        for req in (PL.Request(prune="safe"), PL.Request(prune="safe", scorer="s1"),
+                    PL.Request(prune="off" if c == "scan" else "topm")):
+            _no_dead(f"{c} {req.prune}/{req.scorer}", s.query_batch(sk, request=req), dead)
+        hits = s.stage1_hits(sk)
+        if hits[:, dead].any():
+            fail(f"{c}: stage1_hits counts a deleted column")
+        if not ((hits[N_DELETED:] > 0).sum(1) >= COLS).all():
+            fail(f"{c}: stage1_hits lost a surviving table")
+        _no_dead(f"{c} search_joinable", s.search_joinable(keys, k=COLS), dead)
+
+    # 5. compact into one segment: planes and answers of a static index
+    t0 = time.perf_counter()
+    base = live.compact()
+    torch.cuda.synchronize()
+    line["compact_s"] = time.perf_counter() - t0
+    keep = np.setdiff1d(np.arange(GROUPS * COLS), dead)
+    if base.capacity != LC.ladder_rung(keep.size, LIVE_CAP) or base.used != keep.size:
+        fail(f"compaction gave capacity {base.capacity}, {base.used} columns")
+    got = base.to_index_shard()
+    sel = torch.as_tensor(keep, device=dev)
+    for f in ("key_hash", "values", "mask", "col_min", "col_max", "rows"):
+        if not torch.equal(getattr(got, f)[:keep.size],
+                           getattr(index.shard, f)[sel].cpu()):
+            fail(f"compacted {f} differ from the index at the surviving ids")
+    survivors = _sub_index(index, keep.tolist())
+    static = {c: SV.Server(survivors, PL.ShapePolicy(candidates=c), buckets=(BUCKET,))
+              for c in ("scan", "auto")}
+    t0 = time.perf_counter()
+    for s in srv.values():
+        s.refresh()
+    line["refresh_after_compact_s"] = (time.perf_counter() - t0) / len(srv)
+    line["segments_after_compact"] = live.stats()["segments"]
+    reqs = [("auto", PL.Request(prune="safe", estimator=e, scorer=sc))
+            for e in PL.ESTIMATORS for sc in PL.FAST_SCORERS]
+    for c, req in reqs + [("scan", PL.Request())]:
+        want = static[c].query_batch(sk, request=req)
+        top_agree(want, srv[c].query_batch(sk, request=req),
+                  f"compacted {c} {req.prune} {req.estimator}/{req.scorer} vs static")
+    del static, survivors
+    lat1 = {"safe(inverted)": _calls(srv["auto"], sk, PL.Request(prune="safe"),
+                                     LAT_CALLS[0]),
+            "off": _calls(srv["scan"], sk, PL.Request(), LAT_CALLS[1])}
+
+    # 6. snapshot round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        live.save(tmp)
+        line["save_s"] = time.perf_counter() - t0
+        line["snapshot_mib"] = sum(os.path.getsize(os.path.join(tmp, f))
+                                   for f in os.listdir(tmp)) / 2**20
+        t0 = time.perf_counter()
+        loaded = LC.LiveIndex.load(tmp, device=dev)
+        line["load_s"] = time.perf_counter() - t0
+    for a, b in zip(live.segments(), loaded.segments()):
+        for f in LC._SEG_FIELDS:
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                fail(f"snapshot round trip changed segment {a.sid} {f}")
+    req = PL.Request(prune="safe")
+    want = srv["auto"].query_batch(sk, request=req)
+    again = SV.Server(loaded, PL.ShapePolicy(candidates="auto"), buckets=(BUCKET,))
+    if not all(np.array_equal(x, y) for x, y in zip(want, again.query_batch(sk, request=req))):
+        fail("the loaded snapshot serves a different top-k")
+    launches = ops.launches()
+    if not all(v > 0 for v in launches.values()):
+        fail(f"a kernel of the lifecycle path was not launched: {launches}")
+
+    # 7. the same mutations on the card and on the CPU
+    t0 = time.perf_counter()
+    card_out, card_stats = mini_script(groups, keys, vals, dev)
+    cpu_out, cpu_stats = mini_script(groups, keys, vals, torch.device("cpu"))
+    if card_stats != cpu_stats:
+        fail(f"card and CPU live indexes differ: {card_stats} vs {cpu_stats}")
+    for i, (w, g) in enumerate(zip(cpu_out, card_out)):
+        top_agree(w, g, f"{MINI_GROUPS}-table mutation script step {i}: card vs CPU")
+    line["mini_script_check_s"] = time.perf_counter() - t0
+
+    line.update(
+        columns=GROUPS * COLS, n=N, delta_cap=LIVE_CAP, queries=N_QUERIES,
+        served={c: {k: s.throughput()[k] for k in ("queries", "dispatches", "qps")}
+                for c, s in srv.items()},
+        call_p50_ms_8_segments={m: _pct(v, 50) for m, v in lat8.items()},
+        call_p99_ms_8_segments={m: _pct(v, 99) for m, v in lat8.items()},
+        call_p50_ms_1_segment={m: _pct(v, 50) for m, v in lat1.items()},
+        call_p99_ms_1_segment={m: _pct(v, 99) for m, v in lat1.items()},
+        launches=launches)
+    say("lifecycle " + json.dumps(line))
+    say(f"lifecycle: {LIVE_FIRST} + {GROUPS - LIVE_FIRST} tables appended "
+        f"({line['segments_after_second_append']} segments), s1/s2 == static "
+        f"across segments, new tables found, {N_DELETED} tables deleted and "
+        f"never served, compacted planes == index at the survivors and 13 "
+        f"requests == static, snapshot round trip bit-identical, "
+        f"{MINI_GROUPS}-table script card == CPU")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -592,14 +934,26 @@ def main() -> None:
     keys, vals, best = planted(groups)
     say(f"corpus: {GROUPS} tables × {COLS} columns × {ROWS} rows in "
         f"{time.perf_counter() - t0:.1f} s")
-    index = phase_index(groups, dev)
+    phases = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        return out
+
+    index = timed("index", phase_index, groups, dev)
+    rows = timed("hash_build", phase_hash_build, groups, dev)
     bucket = kernel_inputs(groups, SV.Server(index, buckets=(BUCKET,)).chunk_for(BUCKET))
-    del groups
-    rows = phase_kernels(index, bucket, dev)
-    launches = phase_slice(index, keys, vals, best, dev)
-    rows.update(phase_stage1_kernels(index, keys, vals, dev))
-    launches.update({k: v for k, v in phase_two_stage(index, keys, vals, dev).items()
+    rows.update(timed("kernels", phase_kernels, index, bucket, dev))
+    launches = timed("slice", phase_slice, index, keys, vals, best, dev)
+    rows.update(timed("stage1_kernels", phase_stage1_kernels, index, keys, vals, dev))
+    launches.update({k: v for k, v in timed("two_stage", phase_two_stage, index,
+                                            keys, vals, dev).items()
                      if k in STAGE1_KERNELS})
+    launches["hash_build"] = timed("lifecycle", phase_lifecycle, groups, index,
+                                   keys, vals, dev)["hash_build"]
+    say("phases " + json.dumps(phases))
 
     kernels = []
     for name, row in rows.items():

@@ -1,10 +1,12 @@
 """Carry state from the JAX engine into the port.
 
 The state of this system is its index (its planes, and the inverted
-postings beside them) and, for a query, its sketches — not weights. These take the reference's arrays as numpy — any object with
-the named attributes, such as ``repro.engine.index.IndexShard`` or a
-``repro.core.sketch.CorrelationSketch`` — so both engines can serve the
-same index.
+postings beside them; for a live index, its segments' mergeable state) and,
+for a query, its sketches — not weights. These take the reference's arrays
+as numpy — any object with the named attributes, such as
+``repro.engine.index.IndexShard``, a ``repro.core.sketch.
+CorrelationSketch`` or a ``repro.engine.lifecycle.LiveIndex`` — so both
+engines can serve the same index.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch import device as D
 from repro_torch.core.sketch import Agg, CorrelationSketch
 from repro_torch.engine.index import IndexShard, Postings, SketchIndex
+from repro_torch.engine.lifecycle import LiveIndex, Segment
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -68,3 +71,36 @@ def sketches_from_reference(sk, device: D.DeviceLike = None
         mask=torch.from_numpy(np.array(sk.mask, bool)).to(dev),
         col_min=_f32(sk.col_min, dev), col_max=_f32(sk.col_max, dev),
         rows=_f32(sk.rows, dev), agg=Agg(sk.agg.value))
+
+
+def live_index_from_reference(live, device: D.DeviceLike = None
+                              ) -> LiveIndex:
+    """The port's `LiveIndex` for a reference live index: its segments'
+    mergeable state (``kh`` u32, ``acc``, ``cnt``, ``order``, ``mask``,
+    ``cmin``, ``cmax``, ``rows``, ``live``), names, owning tables, seal
+    flags and versions, and the index's counters (next segment id, source
+    count, version). Ingest and compaction of the result run on
+    ``device``."""
+    idx = LiveIndex(n=live.n, agg=Agg(live.agg.value), chunk=live.chunk,
+                    delta_cap=live.delta_cap, engine=live.engine,
+                    device=device)
+    with live._lock:
+        idx._next_sid = int(live._next_sid)
+        idx._n_sources = int(live._n_sources)
+        idx.version = int(live.version)
+        idx._set_segments([Segment(
+            sid=int(seg.sid), n=int(seg.n), agg=idx.agg,
+            capacity=int(seg.capacity),
+            kh=np.array(seg.kh, np.uint32),
+            acc=np.array(seg.acc, np.float32),
+            cnt=np.array(seg.cnt, np.float32),
+            order=np.array(seg.order, np.float32),
+            mask=np.array(seg.mask, bool),
+            cmin=np.array(seg.cmin, np.float32),
+            cmax=np.array(seg.cmax, np.float32),
+            rows=np.array(seg.rows, np.float32),
+            names=list(seg.names), tables=list(seg.tables),
+            live=np.array(seg.live, bool), used=int(seg.used),
+            sealed=bool(seg.sealed), version=int(seg.version),
+            device=idx.device) for seg in live._segs])
+    return idx

@@ -16,6 +16,8 @@ arrays. Index planes and kernels carry hashes as the ``int32`` bit pattern
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -162,11 +164,14 @@ def unit_interval(fib_u32: torch.Tensor) -> torch.Tensor:
     return fib_u32.to(torch.float32) * np.float32(1.0 / 4294967296.0)
 
 
-def sentinel_safe(key_hash: torch.Tensor) -> torch.Tensor:
+def sentinel_safe(key_hash: torch.Tensor,
+                  fib: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mask of hashes usable as sketch keys: neither the key-space sentinel
-    nor the preimage of the Fibonacci-space sentinel."""
-    return ((key_hash != SENTINEL_HASH)
-            & (fibonacci_u32(key_hash) != SENTINEL_HASH))
+    nor the preimage of the Fibonacci-space sentinel. ``fib`` is
+    `fibonacci_u32` of ``key_hash`` when the caller already has it."""
+    if fib is None:
+        fib = fibonacci_u32(key_hash)
+    return (key_hash != SENTINEL_HASH) & (fib != SENTINEL_HASH)
 
 
 def to_pattern(key_hash: torch.Tensor) -> torch.Tensor:

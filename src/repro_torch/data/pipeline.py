@@ -2,14 +2,16 @@
 
 The table generators the engine and its tests need: `Table` (one ⟨K, X⟩
 column pair), `TableGroup` (a join-key column shared by C numeric columns),
-`multi_column_group` (a wide table with known cross-column correlation)
-and `sbn_pair` (the SBN bivariate-normal pair). Same seeds give the same
+`multi_column_group` (a wide table with known cross-column correlation),
+`group_corpus` / `grow_corpus` (a corpus of wide tables, and one arriving
+in batches, the live index's workload) and `sbn_pair` (the SBN
+bivariate-normal pair). Same seeds give the same
 tables as the JAX package's generators.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -78,6 +80,30 @@ def multi_column_group(rng, n_cols: int = 16, n_max: int = 100_000,
     return TableGroup(keys=keys, values=vals, name=name,
                       column_names=[f"{name}.c{c}" for c in range(n_cols)],
                       meta=meta)
+
+
+def group_corpus(rng, n_groups: int, n_cols: int = 16, n_max: int = 100_000
+                 ) -> List[TableGroup]:
+    """A corpus of wide tables — the §5.5-style ingest workload."""
+    return [multi_column_group(rng, n_cols=n_cols, n_max=n_max, name=f"g{i}")
+            for i in range(n_groups)]
+
+
+def grow_corpus(rng, n_batches: int, tables_per_batch: int = 4,
+                n_cols: int = 8, n_max: int = 8000,
+                key_space: int = 1 << 14, start: int = 0
+                ) -> Iterator[List[TableGroup]]:
+    """A growing corpus: successive arrival batches of wide tables, the
+    live index's workload. All batches share one key universe, so queries
+    join across the whole history; names continue ``g{start}, g{start+1},
+    …`` so later arrivals extend earlier ones."""
+    i = start
+    for _ in range(n_batches):
+        batch = [multi_column_group(rng, n_cols=n_cols, n_max=n_max,
+                                    key_space=key_space, name=f"g{i + j}")
+                 for j in range(tables_per_batch)]
+        i += tables_per_batch
+        yield batch
 
 
 def sbn_pair(rng, n_max: int = 500_000, r: Optional[float] = None,

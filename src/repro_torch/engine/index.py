@@ -67,16 +67,21 @@ def query_arrays(sk: CorrelationSketch):
 
 
 def build_index(tables: Sequence, *, n: int = 256, agg: Agg = Agg.MEAN,
-                chunk: int = 65536, pad_to: Optional[int] = None,
+                chunk: int = ingest.DEFAULT_CHUNK,
+                pad_to: Optional[int] = None, engine: str = "fused",
                 device: D.DeviceLike = None) -> SketchIndex:
     """Sketch every column of ``tables`` (`Table`s and `TableGroup`s) on
-    ``device`` and stack them into an index. ``pad_to`` rounds the column
-    count up with masked padding columns."""
+    ``device`` and stack them into an index. ``engine`` is the ingest
+    engine (`ingest.ENGINES`: "fused" hashes and sorts each key column once
+    for all its columns, "loop" sorts per column); the two give identical
+    planes. ``pad_to`` rounds the column count up with masked padding
+    columns."""
     dev = D.resolve(device)
     names: List[str] = []
     for i, t in enumerate(tables):
         names.extend(ingest.source_names(t, i))
-    sk = ingest.sketch_sources(tables, n=n, agg=agg, chunk=chunk, device=dev)
+    sk = ingest.sketch_sources(tables, n=n, agg=agg, chunk=chunk, device=dev,
+                               engine=engine)
     C = len(names)
     pad = (pad_to - C) if pad_to and pad_to > C else 0
 
@@ -94,6 +99,10 @@ def build_index(tables: Sequence, *, n: int = 256, agg: Agg = Agg.MEAN,
                        col_max=fill(sk.col_max, 0.0),
                        rows=fill(sk.rows, 0.0))
     return SketchIndex(shard=shard, names=names, n=n)
+
+
+#: wide-table corpora read most naturally as a list of groups
+build_index_groups = build_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +127,7 @@ def key_minima(shard: IndexShard) -> KeyMinima:
                      tau=fib.max(-1).astype(np.uint32))
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class Postings:
     """Inverted key index (DESIGN.md §7): every stored ``(key hash →
     column)`` pair of the index, key-sorted into two flat device arrays
@@ -130,7 +139,12 @@ class Postings:
     with ``E = capacity × n``. Keys are held as ``int64`` values, not as the
     planes' ``int32`` bit patterns: signed order would put PAD (pattern −1)
     among the keys, and the window probe searches this order. An equal-key
-    run lists every column holding that key (in column order)."""
+    run lists every column holding that key (in column order).
+
+    Mutable for the live index: `insert_cols` / `remove_cols` keep the
+    layout equal to `build_postings` of the changed planes — the same keys
+    and the same (key → column) multiset — under appends and tombstones.
+    E never changes, so a segment's probe shapes survive its mutations."""
     keys: torch.Tensor
     cols: torch.Tensor
     used: int
@@ -147,6 +161,59 @@ class Postings:
         _, runs = torch.unique_consecutive(self.keys[:self.used],
                                            return_counts=True)
         return int(runs.max())
+
+    def _set_prefix(self, keys: torch.Tensor, cols: torch.Tensor) -> None:
+        """Make ``(keys, cols)`` the live prefix and re-pad the tail."""
+        used = int(keys.shape[0])
+        if used > self.E:
+            raise ValueError(f"postings capacity overflow: {used} entries "
+                             f"for E = {self.E}")
+        self.keys[:used] = keys
+        self.cols[:used] = cols
+        self.keys[used:max(used, self.used)] = PAD_KEY
+        self.cols[used:max(used, self.used)] = -1
+        self.used = used
+
+    def remove_cols(self, cols) -> None:
+        """Drop every entry of the columns ``cols`` (a tombstone: they can
+        never surface as candidates)."""
+        live_cols = self.cols[:self.used]
+        keep = ~torch.isin(live_cols, torch.as_tensor(
+            cols, dtype=torch.int32, device=live_cols.device))
+        if bool(keep.all()):
+            return
+        self._set_prefix(self.keys[:self.used][keep], live_cols[keep])
+
+    def remove_col(self, col: int) -> None:
+        self.remove_cols([int(col)])
+
+    def insert_cols(self, col0: int, key_hash: torch.Tensor,
+                    mask: torch.Tensor) -> None:
+        """Merge the valid keys of columns ``col0, col0 + 1, …`` (``[C, n]``
+        int32 key patterns and masks, on any device) into the sorted
+        layout, dropping stale entries of those columns first. One stable
+        sort of the prefix with the new pairs: new columns append after
+        every existing column of an equal-key run, as in `build_postings`
+        when their ids are the highest."""
+        C = key_hash.shape[0]
+        self.remove_cols(range(col0, col0 + C))
+        kh = hashing.from_pattern(key_hash.to(self.keys.device))
+        live = (mask.to(self.keys.device) > 0) & (kh != PAD_KEY)
+        new_cols = (torch.arange(C, dtype=torch.int32, device=kh.device)
+                    + col0)[:, None].expand(kh.shape)[live]
+        keys = torch.cat([self.keys[:self.used], kh[live]])
+        cols = torch.cat([self.cols[:self.used], new_cols])
+        keys, order = torch.sort(keys, stable=True)
+        self._set_prefix(keys, cols[order])
+
+    def insert_col(self, col: int, key_hash: torch.Tensor,
+                   mask: torch.Tensor) -> None:
+        """`insert_cols` of one column (``[n]`` planes)."""
+        self.insert_cols(int(col), key_hash[None], mask[None])
+
+    def copy(self) -> "Postings":
+        return Postings(keys=self.keys.clone(), cols=self.cols.clone(),
+                        used=self.used)
 
 
 def build_postings(key_hash: torch.Tensor, mask: torch.Tensor,

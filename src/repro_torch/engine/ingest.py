@@ -4,9 +4,24 @@ device launches (the §3.4 streaming build).
 A source is a `Table` (one column) or a `TableGroup` (C columns sharing one
 join-key column). Consecutive sources are packed into one ``[columns, rows]``
 batch, each padded to the batch's longest row count with invalid rows, and
-sketched by one batched `build_sketch` per row chunk, folded with `merge`.
-Each column's sketch equals what `build_sketch_streaming` gives for it alone:
-padding rows are invalid, and chunks see the same global row order.
+sketched chunk by chunk, the chunk sketches folded with `merge`. Each
+column's sketch equals what `build_sketch_streaming` gives for it alone:
+padding rows are invalid, and chunks see the same global row order — so
+which sources share a batch changes no result.
+
+Two engines build a chunk, bit-identical to each other:
+
+* ``"fused"`` (the default, the reference's fused ingest) — a source's
+  32-bit join keys are hashed once for all its columns by the `hash_build`
+  kernel (`repro_torch.kernels.ops.hash_build`; 64-bit keys by
+  `hashing.murmur3_32`), and each chunk of a key column is sorted once by
+  (Fibonacci hash, row order) for all its columns
+  (`core.sketch._build_cols_from_hashed`);
+* ``"loop"`` — the per-column path: every column sorts its own chunk
+  (`build_sketch`).
+
+`tree_merge` folds stacked partial sketches in log₂(P) rounds: the fold of
+the live index's compaction.
 """
 from __future__ import annotations
 
@@ -16,9 +31,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.core.sketch import (Agg, CorrelationSketch, build_sketch,
+from repro_torch.core.sketch import (Agg, CorrelationSketch,
+                                     _build_cols_from_hashed, build_sketch,
                                      merge)
 from repro_torch.data.pipeline import TableGroup
+from repro_torch.kernels import ops as K
+
+#: the ingest engines (`sketch_source`)
+ENGINES = ("fused", "loop")
+#: chunk rows per build step (the paper's streaming granularity)
+DEFAULT_CHUNK = 65536
 
 #: column × row elements per batched build: bounds the device memory of one
 #: batch (a few hundred bytes per element across the sort intermediates)
@@ -63,8 +85,20 @@ def _batches(sources: Sequence) -> List[List]:
     return out
 
 
+def check_engine(engine: str) -> None:
+    """Raise unless ``engine`` is one of `ENGINES`."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown ingest engine {engine!r}: use one of "
+                         f"{ENGINES}")
+
+
+#: the fold operator of stacked sketches (the reference's name): `merge`,
+#: the KMV ⊕ of §2.1, is already elementwise over leading axes
+merge_cols = merge
+
+
 def _sketch_batch(batch: Sequence, *, n: int, agg: Agg, chunk: int,
-                  device: torch.device) -> CorrelationSketch:
+                  device: torch.device, engine: str) -> CorrelationSketch:
     """One batch of sources → stacked ``[columns, n]`` sketches."""
     vals = [_values_2d(t) for t in batch]
     L = max(v.shape[1] for v in vals)
@@ -86,28 +120,88 @@ def _sketch_batch(batch: Sequence, *, n: int, agg: Agg, chunk: int,
         values[c0:c0 + v.shape[0], :m] = v
         c0 += v.shape[0]
     src_d = torch.from_numpy(src).to(device)
-    kh = hashing.murmur3_32(torch.from_numpy(keys).to(device))[src_d]
-    ok = torch.from_numpy(row_ok).to(device)[src_d]
+    keys_d = torch.from_numpy(keys).to(device)
+    ok = torch.from_numpy(row_ok).to(device)
     vals_d = torch.from_numpy(values).to(device)
+    if engine == "fused":
+        if width == 4:
+            h, fib, _ = K.hash_build(keys_d)
+            kh, fib = hashing.from_pattern(h), hashing.from_pattern(fib)
+        else:  # the reference has no kernel for two-block keys
+            kh = hashing.murmur3_32(keys_d)
+            fib = hashing.fibonacci_u32(kh)
+    else:
+        kh, ok = hashing.murmur3_32(keys_d)[src_d], ok[src_d]
     sk = None
     for s in range(0, L, chunk):
         e = min(s + chunk, L)
-        part = build_sketch(kh[:, s:e], vals_d[:, s:e], n=n, agg=agg,
-                            valid=ok[:, s:e], order_offset=float(s),
-                            pre_hashed=True)
+        if engine == "fused":
+            order = (torch.arange(e - s, dtype=torch.float32, device=device)
+                     + float(s)).expand(len(batch), e - s)
+            part = _build_cols_from_hashed(kh[:, s:e], fib[:, s:e],
+                                           vals_d[:, s:e], ok[:, s:e], order,
+                                           src_d, n, agg)
+        else:
+            part = build_sketch(kh[:, s:e], vals_d[:, s:e], n=n, agg=agg,
+                                valid=ok[:, s:e], order_offset=float(s),
+                                pre_hashed=True)
         sk = part if sk is None else merge(sk, part)
     return sk
 
 
 def sketch_sources(sources: Sequence, *, n: int, agg: Agg = Agg.MEAN,
-                   chunk: int = 65536, device: torch.device
-                   ) -> CorrelationSketch:
+                   chunk: int = DEFAULT_CHUNK, device: torch.device,
+                   engine: str = "fused") -> CorrelationSketch:
     """Sketch every column of ``sources`` → stacked ``[C_total, n]``
-    sketches in source order, built on ``device``."""
-    parts = [_sketch_batch(b, n=n, agg=agg, chunk=chunk, device=device)
+    sketches in source order, built on ``device`` by ``engine``."""
+    check_engine(engine)
+    parts = [_sketch_batch(b, n=n, agg=agg, chunk=chunk, device=device,
+                           engine=engine)
              for b in _batches(sources)]
     fields = ("key_hash", "acc", "cnt", "order", "mask", "col_min",
               "col_max", "rows")
     return CorrelationSketch(
         **{f: torch.cat([getattr(p, f) for p in parts]) for f in fields},
         agg=agg)
+
+
+def sketch_source(t, *, n: int, agg: Agg = Agg.MEAN,
+                  chunk: int = DEFAULT_CHUNK, device: torch.device,
+                  engine: str = "fused") -> CorrelationSketch:
+    """Sketch one ingest source into a stacked ``[C, n]`` sketch — the
+    entry point shared by `build_index` and the live index's append, so a
+    table sketched at append time equals the same table sketched at build
+    time."""
+    return sketch_sources([t], n=n, agg=agg, chunk=chunk, device=device,
+                          engine=engine)
+
+
+def sketch_table(keys, values, *, n: int = 256, agg: Agg = Agg.MEAN,
+                 chunk: int = DEFAULT_CHUNK, device: torch.device
+                 ) -> CorrelationSketch:
+    """Sketch every column of one table with the fused engine: ``keys
+    [m]`` is its join-key column, ``values [C, m]`` (or ``[m]``) its
+    numeric columns → ``[C, n]`` sketches, bit-identical per column to
+    `build_sketch_streaming` on that column."""
+    values = np.asarray(values, np.float32)
+    return sketch_source(TableGroup(keys=np.asarray(keys),
+                                    values=np.atleast_2d(values)),
+                         n=n, agg=agg, chunk=chunk, device=device)
+
+
+def tree_merge(parts: CorrelationSketch) -> CorrelationSketch:
+    """Fold P partial sketches (leading ``[P]`` axis) in log₂(P) rounds of
+    pairwise merges (the KMV merge closure). Keys, masks and counts do not
+    depend on the tree's shape; a key held by several partials may sum its
+    values in another order than a linear fold, so they can differ in the
+    last bit. Compaction's partials are disjoint, so there it is exact.
+    Pairs merge one at a time: the peak memory is that of one merge."""
+    level = [parts.map(lambda x, i=i: x[i])
+             for i in range(parts.key_hash.shape[0])]
+    while len(level) > 1:
+        nxt = [merge(level[i], level[i + 1])
+               for i in range(0, len(level) - 1, 2)]
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]

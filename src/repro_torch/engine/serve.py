@@ -1,6 +1,11 @@
-"""Request serving over a static sketch index on one device (DESIGN.md §6).
+"""Request serving on one device (DESIGN.md §6): a static sketch index, or
+a live index served segment by segment.
 
-`Server` answers join-correlation queries against one `SketchIndex`:
+`Server` is the facade. Over a `SketchIndex` it runs one segment executor;
+over a `repro_torch.engine.lifecycle.LiveIndex` it runs one per segment,
+picks up mutations on `Server.refresh` and combines the segments' results
+deterministically (score descending, then global id ascending; id −1 on
+−inf rows), ids indexing `Server.names`. A segment executor does:
 
   * **batched sketch construction** — query columns are cut into
     fixed-length row chunks, all chunks are sketched in one batched
@@ -27,17 +32,18 @@
     columns by containment, Jaccard, join size or hits (§2.1/§3.3).
 
 Request semantics (k, estimator, scorer, prune mode, α, floor) are per
-call; results come back as numpy ``[NQ, k]`` arrays (scores, ids into
-``names``, r, m), ordered score descending then id ascending, with id −1
-where no candidate is eligible.
+call; results come back as numpy ``[NQ, k]`` arrays (scores, ids, r, m).
+During a live index's delta phase the s4 CI normalisation spans one
+segment's candidate list; s1 and s2 equal a static server's throughout.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 import time
 from collections import deque
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +54,11 @@ from repro_torch.core import hashing
 from repro_torch.core.sketch import (PAD_KEY, Agg, CorrelationSketch,
                                      build_sketch, merge)
 from repro_torch.engine import candidates as CD
+from repro_torch.engine import lifecycle as LC
 from repro_torch.engine import plans as PL
-from repro_torch.engine.index import (KeyMinima, SketchIndex, build_postings,
-                                      key_minima, query_arrays)
+from repro_torch.engine.index import (IndexShard, KeyMinima, Postings,
+                                      build_postings, key_minima,
+                                      query_arrays)
 from repro_torch.kernels import ops as K
 
 #: rows (bucket B × candidates) of one scored block: bucket B scores
@@ -168,44 +176,44 @@ def _host(out):
     return tuple(o.cpu().numpy() for o in out)
 
 
+def _stage_table(stage_s: Dict[str, float], stage_n: Dict[str, int]) -> dict:
+    """``{stage: {count, total_s}}`` of per-stage accumulators."""
+    return {name: dict(count=stage_n.get(name, 0),
+                       total_s=stage_s.get(name, 0.0))
+            for name in sorted(set(stage_n) | set(stage_s))}
+
+
 def _drop_ineligible(s, g, r, m):
     """Id −1 where the score is −inf, so it never aliases a column."""
     return s, np.where(np.isfinite(s), g, -1).astype(np.int32), r, m
 
 
-class Server:
-    """Serves join-correlation queries against one static index.
+class _SegmentExec:
+    """Serves queries against one resident index shard: a static index, or
+    one segment of a live index. `Server` is the facade over one or many.
 
-    ``device`` defaults to the CUDA card (raising when there is none); the
-    index planes are moved there once. ``policy`` is the `ShapePolicy`,
-    ``request`` the default `Request` — every query method takes a per-call
-    ``request=`` override. ``candidates="auto"`` resolves against the
-    index's column count here; ``fused_safe = False`` switches inverted
-    ``safe`` requests to the two-dispatch path (same survivors).
-    """
+    ``shape.k_max`` is clamped to the shard's column count, so a small
+    segment still serves; ``candidates="auto"`` resolves against that
+    count. ``postings`` (a live segment's, maintained by its writes and
+    tombstones) back the inverted source instead of a fresh build."""
 
-    def __init__(self, index: SketchIndex,
-                 policy: Optional[PL.ShapePolicy] = None, *,
-                 request: Optional[PL.Request] = None,
-                 buckets: Sequence[int] = (1, 8, 32),
-                 device: D.DeviceLike = None):
-        self.device = D.resolve(device)
-        self.shard = index.shard.to(self.device)
-        self.names = list(index.names)
-        self.n = index.n
+    def __init__(self, shard: IndexShard, n: int, shape: PL.ShapePolicy, *,
+                 request: PL.Request, buckets: Tuple[int, ...],
+                 device: torch.device,
+                 postings: Optional[Postings] = None):
+        self.device = device
+        self.shard = shard.to(device)
+        self.n = int(n)
         self.C = self.shard.num_columns
-        shape = policy if policy is not None else PL.ShapePolicy()
         if shape.k_max > self.C:  # a corpus smaller than k_max still serves
             shape = dataclasses.replace(shape, k_max=self.C)
         self.shape = shape
         self.k_max = shape.k_max
         #: the concrete stage-1 source ("auto" resolved against C)
         self.candidates = PL.resolve_candidates(shape.candidates, self.C)
-        self.request = request if request is not None else PL.Request()
-        PL.request_operands(self.request)
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
-        if not self.buckets or self.buckets[0] <= 0:
-            raise ValueError(f"buckets must be positive sizes: {buckets}")
+        self.request = request
+        self.buckets = buckets
+        self._postings = postings
         self._source = None
         #: KMV key-minima layout and its D̂_C estimates (built on first use)
         self._minima: Optional[KeyMinima] = None
@@ -215,6 +223,8 @@ class Server:
         self.fused_safe = True
         #: measured seconds per dispatch for each bucket (filled by warmup)
         self._bucket_cost = {}
+        #: guards the telemetry below: a racy ``+=`` loses updates
+        self._tel_lock = threading.Lock()
         #: per-dispatch telemetry (bucket B, real queries, seconds), bounded
         self.dispatch_log: Deque[Tuple[int, int, float]] = deque(maxlen=4096)
         self._total_queries = 0
@@ -252,12 +262,16 @@ class Server:
         choice (`repro_torch.engine.candidates`), built on first use; the
         inverted one builds its postings on the device."""
         if self._source is None:
-            self._source = (
-                CD.InvertedSource(build_postings(self.shard.key_hash,
-                                                 self.shard.mask),
-                                  C=self.C, n=self.n)
-                if self.candidates == "inverted" else
-                CD.ScanSource(self.shard))
+            if self.candidates == "inverted":
+                post = self._postings
+                post = (build_postings(self.shard.key_hash, self.shard.mask)
+                        if post is None else
+                        Postings(keys=post.keys.to(self.device),
+                                 cols=post.cols.to(self.device),
+                                 used=post.used))
+                self._source = CD.InvertedSource(post, C=self.C, n=self.n)
+            else:
+                self._source = CD.ScanSource(self.shard)
         return self._source
 
     # -- warmup --------------------------------------------------------------
@@ -330,9 +344,10 @@ class Server:
     # -- dispatch ------------------------------------------------------------
     def _stage(self, name: str, t0: float) -> None:
         """Count one run of stage ``name`` begun at ``t0`` (host clock)."""
-        self._stage_s[name] = (self._stage_s.get(name, 0.0)
-                               + time.perf_counter() - t0)
-        self._stage_n[name] = self._stage_n.get(name, 0) + 1
+        dt = time.perf_counter() - t0
+        with self._tel_lock:
+            self._stage_s[name] = self._stage_s.get(name, 0.0) + dt
+            self._stage_n[name] = self._stage_n.get(name, 0) + 1
 
     def _scan(self, qa, B: int, ops):
         """The full scan of a bucket-B batch (direct, or the fallback of a
@@ -433,55 +448,33 @@ class Server:
         t0 = time.perf_counter()
         out = self._serve(qa, nq, B, req, ops)
         dt = time.perf_counter() - t0
-        self.dispatch_log.append((B, nq, dt))
-        self._total_queries += nq
-        self._total_dispatches += 1
-        self._total_s += dt
+        with self._tel_lock:
+            self.dispatch_log.append((B, nq, dt))
+            self._total_queries += nq
+            self._total_dispatches += 1
+            self._total_s += dt
         return tuple(o[:nq] for o in out)
 
     # -- queries -------------------------------------------------------------
-    def query_batch(self, sketches: CorrelationSketch, *,
-                    request: Optional[PL.Request] = None):
-        """Serve query sketches (leading [NQ] axis) → ``[NQ, k]`` numpy
-        (scores, ids, r, m); ids index `names`, −1 where the score is −inf;
-        ties in score go to the lower id."""
-        req = request if request is not None else self.request
-        if req.k > self.shape.k_max:
-            raise ValueError(f"request k={req.k} exceeds ShapePolicy.k_max="
-                             f"{self.shape.k_max}; raise k_max or lower k")
+    def query_batch(self, sketches: CorrelationSketch, req: PL.Request):
+        """Serve query sketches (leading [NQ] axis) under ``req`` →
+        ``[NQ, min(req.k, k_max)]`` numpy (scores, shard-local ids, r, m),
+        each row score descending then id ascending, id −1 where the score
+        is −inf."""
         ops = PL.request_operands(req)
         qa = tuple(a.to(self.device) for a in query_arrays(sketches))
         nq = int(qa[0].shape[0])
-        k = int(req.k)
-        out = (np.full((nq, k), -np.inf, np.float32),
-               np.full((nq, k), -1, np.int32),
-               np.zeros((nq, k), np.float32), np.zeros((nq, k), np.float32))
-        if nq == 0:
-            return out
+        k = min(int(req.k), self.k_max)
         parts, s = [], 0
         for B in self.plan_batches(nq):
             e = min(s + B, nq)
             parts.append(self._dispatch(tuple(a[s:e] for a in qa), e - s, B,
                                         req, ops))
             s = e
-        sc, g, r, m = (np.concatenate(p) for p in zip(*parts))
-        pick = np.lexsort((g, -sc), axis=1)[:, :k]
-        sc, g, r, m = (np.take_along_axis(x, pick, axis=1)
-                       for x in (sc, g, r, m))
-        kk = sc.shape[1]
-        fin = np.isfinite(sc)
-        out[0][:, :kk] = sc
-        out[1][:, :kk] = np.where(fin, g, -1)
-        out[2][:, :kk] = np.where(fin, r, 0.0)
-        out[3][:, :kk] = np.where(fin, m, 0.0)
-        return out
-
-    def query_columns(self, keys_list, values_list, *, chunk: int = 8192,
-                      request: Optional[PL.Request] = None):
-        """Raw query columns → sketches on the server's device → top-k."""
-        sks = build_query_sketches(keys_list, values_list, n=self.n,
-                                   chunk=chunk, device=self.device)
-        return self.query_batch(sks, request=request)
+        if not parts:
+            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32),
+                    np.zeros((0, k), np.float32), np.zeros((0, k), np.float32))
+        return tuple(np.concatenate(p)[:, :k] for p in zip(*parts))
 
     # -- joinability (stage 1 as a workload) ---------------------------------
     def key_minima(self) -> KeyMinima:
@@ -509,26 +502,14 @@ class Server:
             s = e
         return np.concatenate(rows, axis=0)
 
-    def stage1_hits(self, sketches: CorrelationSketch) -> np.ndarray:
-        """Exact per-candidate sketch-intersection sizes ``[NQ, C]`` of
-        query sketches, over the named columns (ids index `names`)."""
-        return self._hits(sketches)[:, :len(self.names)]
-
     def search_joinable_sketches(self, sketches: CorrelationSketch, *,
-                                 k: Optional[int] = None,
-                                 metric: str = "containment",
-                                 request: Optional[PL.Request] = None
+                                 k: int, metric: str, alpha: float
                                  ) -> JoinabilityResult:
         """Top-k joinable columns of pre-built query sketches: stage-1 hit
         counts → `repro_torch.core.containment` estimates with Hoeffding
-        CIs (at the request's α) → ranked by ``metric`` (one of
-        `JOIN_METRICS`, descending; ties to the lower id). Columns with no
-        key overlap never appear; short rows pad with id −1."""
-        if metric not in JOIN_METRICS:
-            raise ValueError(f"unknown joinability metric {metric!r}: "
-                             f"use one of {JOIN_METRICS}")
-        req = request if request is not None else self.request
-        k = int(k or req.k)
+        CIs at ``alpha`` → ranked by ``metric`` (descending; ties to the
+        lower id). Columns with no key overlap never appear; short rows pad
+        with id −1."""
         hits = self._hits(sketches)
         nq = hits.shape[0]
         minima = self.key_minima()
@@ -541,7 +522,7 @@ class Server:
             est = CT.joinability_estimates(
                 hits[i], CT.query_minima(q_kh[i], q_mask[i]),
                 minima.count, minima.tau, self.n,
-                cand_distinct=self._minima_dc, alpha=req.alpha)
+                cand_distinct=self._minima_dc, alpha=alpha)
             score = np.asarray(getattr(est, metric), np.float32)
             ok = est.hits > 0
             order = np.lexsort((np.arange(score.shape[0]),
@@ -555,40 +536,380 @@ class Server:
                                             np.float32)[order]
         return JoinabilityResult(**out)
 
+    # -- telemetry -----------------------------------------------------------
+    def stage_stats(self) -> Tuple[Dict[str, float], Dict[str, int]]:
+        """A consistent copy of ``({stage: seconds}, {stage: count})``."""
+        with self._tel_lock:
+            return dict(self._stage_s), dict(self._stage_n)
+
+    def throughput(self) -> dict:
+        """Lifetime totals (queries, dispatches, seconds, qps), dispatch
+        latency percentiles over the recent-dispatch window, and the
+        per-stage breakdown: ``stages[name] = {count, total_s}`` and
+        ``device_dispatches``, the count of device stages."""
+        stage_s, stage_n = self.stage_stats()
+        with self._tel_lock:
+            log = list(self.dispatch_log)
+            queries, dispatches = self._total_queries, self._total_dispatches
+            total_s = self._total_s
+        stages = _stage_table(stage_s, stage_n)
+        devd = sum(stage_n.get(name, 0) for name in _DEVICE_STAGES)
+        if not queries:
+            return dict(queries=0, dispatches=0, total_s=0.0, qps=0.0,
+                        dispatch_p50_ms=0.0, dispatch_p90_ms=0.0,
+                        dispatch_p99_ms=0.0, per_query_ms=0.0,
+                        stages=stages, device_dispatches=devd)
+        lat_ms = np.array([t * 1e3 for _, _, t in log])
+        return dict(
+            queries=queries, dispatches=dispatches, total_s=total_s,
+            qps=queries / max(total_s, 1e-12),
+            dispatch_p50_ms=float(np.percentile(lat_ms, 50)),
+            dispatch_p90_ms=float(np.percentile(lat_ms, 90)),
+            dispatch_p99_ms=float(np.percentile(lat_ms, 99)),
+            per_query_ms=1e3 * total_s / queries,
+            stages=stages, device_dispatches=devd)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SegEntry:
+    """One segment of a published segment map. Frozen: `Server.refresh`
+    never mutates an entry a dispatch may be reading; a segment whose
+    global-id ``base`` moved is republished as a new entry sharing the old
+    executor."""
+    sid: int
+    version: int
+    base: int       # global-id offset (cumulative used slots before it)
+    used: int
+    exec: _SegmentExec
+
+
+class Server:
+    """Serves join-correlation queries against a `SketchIndex` (one
+    segment) or a `repro_torch.engine.lifecycle.LiveIndex` (one executor
+    per segment, `refresh` picking up its mutations).
+
+    ``device`` defaults to the CUDA card (raising when there is none).
+    ``policy`` is the `ShapePolicy`, ``request`` the default `Request` —
+    every query method takes a per-call ``request=`` override.
+    ``candidates="auto"`` resolves per segment against its column count.
+    Results combine across segments deterministically (score descending,
+    global id ascending, id −1 on −inf rows) into ``[NQ, request.k]``
+    numpy arrays whose ids index `names`. Over a static index, the single
+    executor's attributes (``shard``, ``C``, ``k_max``, ``candidates``,
+    ``source()``, ``dispatch_log``, …) read through the facade.
+    """
+
+    def __init__(self, source, policy: Optional[PL.ShapePolicy] = None, *,
+                 request: Optional[PL.Request] = None,
+                 buckets: Sequence[int] = (1, 8, 32),
+                 device: D.DeviceLike = None):
+        self.device = D.resolve(device)
+        self.shape = policy if policy is not None else PL.ShapePolicy()
+        PL.resolve_candidates(self.shape.candidates, 0)
+        self.request = request if request is not None else PL.Request()
+        PL.request_operands(self.request)
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if not self.buckets or self.buckets[0] <= 0:
+            raise ValueError(f"buckets must be positive sizes: {buckets}")
+        self._fused_safe = True
+        #: the published segment map: an immutable tuple of frozen entries.
+        #: Queries read it once per call, and `refresh` swaps in a complete
+        #: replacement by one assignment, so a query sees one index version
+        #: (global-id bases included), never a mixture.
+        self._view: Tuple[_SegEntry, ...] = ()
+        self.names: List[str] = []
+        self._seen_version = -1
+        #: serialises refresh; queries never take it
+        self._refresh_lock = threading.RLock()
+        #: guards the request counters and the retired executors' totals
+        self._stats_lock = threading.Lock()
+        #: measured bucket costs per segment capacity: a new executor of a
+        #: known capacity plans with them without warming up
+        self._cap_costs: Dict[int, Dict[int, float]] = {}
+        self._q_total = 0
+        self._q_seconds = 0.0
+        self._retired_dispatches = 0
+        self._retired_stage_s: Dict[str, float] = {}
+        self._retired_stage_n: Dict[str, int] = {}
+        if isinstance(source, LC.LiveIndex):
+            self._live = source
+            self.n = source.n
+            self.refresh()
+        else:
+            self._live = None
+            self.n = source.n
+            ex = self._make_exec(source.shard)
+            self._view = (_SegEntry(sid=0, version=0, base=0,
+                                    used=len(source.names), exec=ex),)
+            self.names = list(source.names)
+
+    def __getattr__(self, name):
+        # the single executor's attributes, for a static index
+        view = self.__dict__.get("_view")
+        if self.__dict__.get("_live", 0) is None and view:
+            return getattr(view[0].exec, name)
+        raise AttributeError(name)
+
+    @property
+    def fused_safe(self) -> bool:
+        """Whether inverted ``safe`` requests take the fused one-dispatch
+        plan (False: the two-dispatch path; the same survivors)."""
+        return self._fused_safe
+
+    @fused_safe.setter
+    def fused_safe(self, value: bool) -> None:
+        self._fused_safe = bool(value)
+        for e in self._view:
+            e.exec.fused_safe = self._fused_safe
+
+    # -- segment sync --------------------------------------------------------
+    def _make_exec(self, shard: IndexShard,
+                   postings: Optional[Postings] = None) -> _SegmentExec:
+        ex = _SegmentExec(shard, self.n, self.shape, request=self.request,
+                          buckets=self.buckets, device=self.device,
+                          postings=postings)
+        ex._bucket_cost = dict(self._cap_costs.get(ex.C, {}))
+        ex.fused_safe = self._fused_safe
+        return ex
+
+    def _inverted(self, capacity: int) -> bool:
+        return PL.resolve_candidates(self.shape.candidates,
+                                     capacity) == "inverted"
+
+    def refresh(self) -> None:
+        """Sync with a live index: place new and changed segments on the
+        device, drop removed ones, rebuild the global-id catalog. A no-op
+        for a static index, and free when the index's version has not
+        moved. The index lock is held only to snapshot the changed
+        segments' host state; placement happens after it is released."""
+        if self._live is None or self._live.version == self._seen_version:
+            return
+        with self._refresh_lock:
+            if self._live.version == self._seen_version:
+                return
+            old = {e.sid: e for e in self._view}
+            with self._live._lock:
+                ver = self._live.version
+                snaps = []
+                for seg in self._live._segs:
+                    prev = old.get(seg.sid)
+                    fresh = prev is None or prev.version != seg.version
+                    inv = self._inverted(seg.capacity)
+                    if fresh and inv:
+                        seg.postings()   # maintained from here on
+                    snaps.append((seg.sid, seg.version, seg.used,
+                                  list(seg.names[:seg.used]),
+                                  seg.host_snapshot() if fresh else None,
+                                  inv))
+            entries: List[_SegEntry] = []
+            names: List[str] = []
+            base = 0
+            for sid, version, used, seg_names, snap, inv in snaps:
+                if snap is None:
+                    e = old[sid]
+                    e = e if e.base == base else dataclasses.replace(
+                        e, base=base)
+                else:
+                    e = _SegEntry(sid=sid, version=version, base=base,
+                                  used=used, exec=self._make_exec(
+                                      snap.to_index_shard(),
+                                      snap.postings() if inv else None))
+                entries.append(e)
+                names.extend(seg_names)
+                base += used
+            kept = {id(e.exec) for e in entries}
+            gone = [e.exec for e in old.values() if id(e.exec) not in kept]
+            with self._stats_lock:
+                for ex in gone:
+                    self._retired_dispatches += ex._total_dispatches
+                    ss, sn = ex.stage_stats()
+                    for k, v in ss.items():
+                        self._retired_stage_s[k] = \
+                            self._retired_stage_s.get(k, 0.0) + v
+                    for k, v in sn.items():
+                        self._retired_stage_n[k] = \
+                            self._retired_stage_n.get(k, 0) + v
+            self.names = names
+            self._view = tuple(entries)
+            self._seen_version = ver
+
+    # -- warmup --------------------------------------------------------------
+    def warmup(self, modes: Optional[Sequence[str]] = None,
+               include_ladder: bool = True) -> None:
+        """Build and load the kernels and warm every segment's plans for
+        the prune ``modes`` (default all), keeping each capacity's bucket
+        costs. ``include_ladder`` (live index) also warms empty segments of
+        the capacities the next mutations will bring: the delta capacity
+        and the rung a `compact` would land on."""
+        warmed = set()
+        for e in self._view:
+            e.exec.warmup(modes)
+            self._cap_costs[e.exec.C] = dict(e.exec._bucket_cost)
+            warmed.add(e.exec.C)
+        if self._live is not None and include_ladder:
+            ahead = {self._live.delta_cap,
+                     LC.ladder_rung(self._live.live_columns(),
+                                    self._live.delta_cap)}
+            for cap in sorted(ahead - warmed):
+                empty = LC.Segment.empty(-1, cap, self.n, self._live.agg,
+                                         self._live.device)
+                ex = self._make_exec(
+                    empty.to_index_shard(),
+                    empty.postings() if self._inverted(cap) else None)
+                ex.warmup(modes)
+                self._cap_costs[ex.C] = dict(ex._bucket_cost)
+
+    # -- queries -------------------------------------------------------------
+    def plan_batches(self, nq: int) -> List[int]:
+        """The first segment's bucket cover of ``nq`` queries (every
+        segment plans its own at dispatch time)."""
+        view = self._view
+        return view[0].exec.plan_batches(nq) if view else []
+
+    def query_batch(self, sketches: CorrelationSketch, *,
+                    request: Optional[PL.Request] = None,
+                    refresh: bool = True):
+        """Serve query sketches (leading [NQ] axis) against every segment
+        → ``[NQ, k]`` numpy (scores, ids, r, m); ids index `names`, −1
+        where the score is −inf; ties in score go to the lower id."""
+        req = request if request is not None else self.request
+        if req.k > self.shape.k_max:
+            raise ValueError(f"request k={req.k} exceeds ShapePolicy.k_max="
+                             f"{self.shape.k_max}; raise k_max or lower k")
+        PL.request_operands(req)
+        if refresh:
+            self.refresh()
+        t0 = time.perf_counter()
+        view = self._view
+        nq = int(sketches.key_hash.shape[0])
+        k = int(req.k)
+        out = (np.full((nq, k), -np.inf, np.float32),
+               np.full((nq, k), -1, np.int32),
+               np.zeros((nq, k), np.float32), np.zeros((nq, k), np.float32))
+        parts = []
+        for e in view:
+            if e.used and nq:
+                s, g, r, m = e.exec.query_batch(sketches, req)
+                parts.append((s, g + e.base, r, m))
+        if parts:
+            sc, g, r, m = (np.concatenate(p, axis=1) for p in zip(*parts))
+            pick = np.lexsort((g, -sc), axis=1)[:, :k]
+            sc, g, r, m = (np.take_along_axis(x, pick, axis=1)
+                           for x in (sc, g, r, m))
+            kk = sc.shape[1]
+            fin = np.isfinite(sc)
+            out[0][:, :kk] = sc
+            out[1][:, :kk] = np.where(fin, g, -1)
+            out[2][:, :kk] = np.where(fin, r, 0.0)
+            out[3][:, :kk] = np.where(fin, m, 0.0)
+        with self._stats_lock:
+            self._q_total += nq
+            self._q_seconds += time.perf_counter() - t0
+        return out
+
+    def query_columns(self, keys_list, values_list, *, chunk: int = 8192,
+                      request: Optional[PL.Request] = None,
+                      refresh: bool = True):
+        """Raw query columns → sketches on the server's device → top-k."""
+        sks = build_query_sketches(keys_list, values_list, n=self.n,
+                                   chunk=chunk, device=self.device)
+        return self.query_batch(sks, request=request, refresh=refresh)
+
+    # -- joinability (stage 1 as a workload) ---------------------------------
+    def stage1_hits(self, sketches: CorrelationSketch, *,
+                    refresh: bool = True) -> np.ndarray:
+        """Exact per-candidate sketch-intersection sizes ``[NQ, C]`` of
+        query sketches over every segment's used slots (ids index
+        `names`; tombstoned columns count 0)."""
+        if refresh:
+            self.refresh()
+        parts = [e.exec._hits(sketches)[:, :e.used] for e in self._view]
+        nq = int(sketches.key_hash.shape[0])
+        return (np.concatenate(parts, axis=1) if parts
+                else np.zeros((nq, 0), np.float32))
+
+    def search_joinable_sketches(self, sketches: CorrelationSketch, *,
+                                 k: Optional[int] = None,
+                                 metric: str = "containment",
+                                 request: Optional[PL.Request] = None,
+                                 refresh: bool = True) -> JoinabilityResult:
+        """Top-k joinable columns of pre-built query sketches across every
+        segment: per-segment stage-1 counts → `repro_torch.core.
+        containment` estimates with Hoeffding CIs (at the request's α) →
+        ranked by ``metric`` (one of `JOIN_METRICS`, descending; ties to
+        the lower global id). Columns with no key overlap, tombstoned ones
+        among them, never appear; short rows pad with id −1."""
+        if metric not in JOIN_METRICS:
+            raise ValueError(f"unknown joinability metric {metric!r}: "
+                             f"use one of {JOIN_METRICS}")
+        req = request if request is not None else self.request
+        if refresh:
+            self.refresh()
+        k = int(k or req.k)
+        nq = int(sketches.key_hash.shape[0])
+        fields = JoinabilityResult._FIELDS
+        parts = []
+        for e in self._view:
+            if e.used:
+                res = e.exec.search_joinable_sketches(
+                    sketches, k=k, metric=metric, alpha=req.alpha)
+                parts.append(dataclasses.replace(res, ids=np.where(
+                    res.ids >= 0, res.ids + e.base, -1).astype(np.int32)))
+        if not parts:
+            out = {f: np.zeros((nq, k), np.float32) for f in fields}
+            out["ids"] = np.full((nq, k), -1, np.int32)
+            return JoinabilityResult(**out)
+        cat = {f: np.concatenate([getattr(p, f) for p in parts], axis=1)
+               for f in fields}
+        ok = cat["ids"] >= 0
+        pick = np.lexsort((np.where(ok, cat["ids"], np.iinfo(np.int32).max),
+                           np.where(ok, -cat["score"], np.inf)),
+                          axis=1)[:, :k]
+        valid = np.take_along_axis(ok, pick, axis=1)
+        out = {}
+        for f in fields:
+            taken = np.take_along_axis(cat[f], pick, axis=1)
+            out[f] = (np.where(valid, taken, -1).astype(np.int32)
+                      if f == "ids" else np.where(valid, taken, 0.0))
+        return JoinabilityResult(**out)
+
     def search_joinable(self, keys_list, *, k: Optional[int] = None,
                         metric: str = "containment", chunk: int = 8192,
-                        request: Optional[PL.Request] = None
-                        ) -> JoinabilityResult:
+                        request: Optional[PL.Request] = None,
+                        refresh: bool = True) -> JoinabilityResult:
         """Top-k joinable columns for raw query key columns (joinability
         needs no values)."""
         values = [np.zeros((len(kz),), np.float32) for kz in keys_list]
         sks = build_query_sketches(keys_list, values, n=self.n, chunk=chunk,
                                    device=self.device)
         return self.search_joinable_sketches(sks, k=k, metric=metric,
-                                             request=request)
+                                             request=request,
+                                             refresh=refresh)
 
     # -- telemetry -----------------------------------------------------------
     def throughput(self) -> dict:
-        """Lifetime totals (queries, dispatches, seconds, qps), dispatch
-        latency percentiles over the recent-dispatch window, and the
-        per-stage breakdown: ``stages[name] = {count, total_s}`` and
-        ``device_dispatches``, the count of device stages."""
-        stages = {name: dict(count=self._stage_n.get(name, 0),
-                             total_s=self._stage_s.get(name, 0.0))
-                  for name in sorted(set(self._stage_n) | set(self._stage_s))}
-        devd = sum(self._stage_n.get(name, 0) for name in _DEVICE_STAGES)
-        if not self._total_queries:
-            return dict(queries=0, dispatches=0, total_s=0.0, qps=0.0,
-                        dispatch_p50_ms=0.0, dispatch_p90_ms=0.0,
-                        dispatch_p99_ms=0.0, per_query_ms=0.0,
-                        stages=stages, device_dispatches=devd)
-        lat_ms = np.array([t * 1e3 for _, _, t in self.dispatch_log])
-        return dict(
-            queries=self._total_queries, dispatches=self._total_dispatches,
-            total_s=self._total_s,
-            qps=self._total_queries / max(self._total_s, 1e-12),
-            dispatch_p50_ms=float(np.percentile(lat_ms, 50)),
-            dispatch_p90_ms=float(np.percentile(lat_ms, 90)),
-            dispatch_p99_ms=float(np.percentile(lat_ms, 99)),
-            per_query_ms=1e3 * self._total_s / self._total_queries,
-            stages=stages, device_dispatches=devd)
+        """Serving telemetry. A static index reports its executor's
+        dispatch-level numbers (latency percentiles included). A live index
+        counts logical queries (one per query, however many segments it
+        fans out to) in ``queries``/``qps`` and the segment dispatches of
+        live and retired executors in ``dispatches`` and ``stages``."""
+        if self._live is None:
+            return self._view[0].exec.throughput()
+        view = self._view
+        with self._stats_lock:
+            q_total, q_seconds = self._q_total, self._q_seconds
+            dispatches = self._retired_dispatches
+            stage_s = dict(self._retired_stage_s)
+            stage_n = dict(self._retired_stage_n)
+        for e in view:
+            ss, sn = e.exec.stage_stats()
+            for k, v in ss.items():
+                stage_s[k] = stage_s.get(k, 0.0) + v
+            for k, v in sn.items():
+                stage_n[k] = stage_n.get(k, 0) + v
+            dispatches += e.exec._total_dispatches
+        return dict(queries=q_total, dispatches=dispatches,
+                    total_s=q_seconds, qps=q_total / max(q_seconds, 1e-12),
+                    segments=len(view), stages=_stage_table(stage_s, stage_n),
+                    device_dispatches=sum(stage_n.get(name, 0)
+                                          for name in _DEVICE_STAGES))

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import containment as _ct
+from repro_torch.kernels import hash_build as _hb
 from repro_torch.kernels import postings as _pm
 from repro_torch.kernels import rank_transform as _rt
 from repro_torch.kernels import ref as _ref
@@ -25,6 +26,7 @@ LAUNCH_COUNTERS = {
     "containment_hits": _ct.containment_hits_batched,
     "postings_merge": _pm.postings_merge,
     "postings_select": _pm.postings_select,
+    "hash_build": _hb.hash_build,
 }
 
 
@@ -105,6 +107,14 @@ def postings_select(cols, counts, floor, M: int, C: int):
     if _on_cuda(cols):
         return _pm.postings_select(cols, counts, floor, M, C)
     return _ref.postings_select(cols, counts, floor, M)
+
+
+def hash_build(keys):
+    """Murmur3 ``h``, Fibonacci ``fib`` and ``unit`` of 32-bit keys (i32
+    bit patterns, any shape) → (h i32, fib i32, unit f32), h and fib as
+    int32 bit patterns."""
+    impl = _hb.hash_build if _on_cuda(keys) else _ref.hash_build
+    return impl(keys)
 
 
 # moment → statistics helpers shared by the engine

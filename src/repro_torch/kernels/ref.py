@@ -361,3 +361,21 @@ def postings_select(cols, counts, floor, M: int):
     surv[:kept] = ids[:kept].to(torch.int32)
     valid = torch.arange(int(M), device=dev) < kept
     return surv, valid, torch.tensor(n_surv, dtype=torch.int32, device=dev)
+
+
+# ----------------------------------------------------------------------------
+# hash_build: murmur3 + Fibonacci + unit interval of 32-bit keys
+# ----------------------------------------------------------------------------
+
+def hash_build(keys):
+    """Elementwise over 32-bit keys (``keys`` i32, the key's bit pattern,
+    any shape): h = murmur3-32 of one 4-byte block (seed 0x9747B28C),
+    fib = h · 2654435769 mod 2³², unit = f32(fib) · 2⁻³² →
+    ``(h i32, fib i32, unit f32)``, h and fib as their int32 bit patterns
+    (`hashing.from_pattern` gives the int64 values)."""
+    if keys.dtype != torch.int32:
+        raise TypeError(f"hash_build takes int32 key patterns, not {keys.dtype}")
+    h = hashing.murmur3_32(keys)
+    fib = hashing.fibonacci_u32(h)
+    return (hashing.to_pattern(h), hashing.to_pattern(fib),
+            hashing.unit_interval(fib))

@@ -17,9 +17,9 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 24, mods
+assert len(mods) >= 26, mods
 for new in ("core.containment", "engine.candidates", "kernels.containment",
-            "kernels.postings"):
+            "kernels.postings", "engine.lifecycle", "kernels.hash_build"):
     assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
@@ -42,6 +42,7 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     from repro_torch import convert
     from repro_torch.data.pipeline import multi_column_group
     from repro_torch.engine import index as TI
+    from repro_torch.engine import lifecycle as TL
     from repro_torch.engine import serve as TSV
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -56,3 +57,11 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         TSV.build_query_sketches([tables[0].keys], [tables[0].values[0]], n=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.index_from_reference(index.shard, index.names, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TL.LiveIndex(n=16)
+    live = TL.LiveIndex(n=16, device="cpu")
+    live.append(tables)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSV.Server(live)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TL.LiveIndex.load("unused")

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import containment as CT
+from repro_torch.kernels import hash_build as HB
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import postings as PM
 from repro_torch.kernels import rank_transform as RT
@@ -192,6 +193,11 @@ def test_cuda_wrappers_refuse_cpu_tensors(rng):
         RT.qn_correlation(a, b, mask)
 
 
+def test_hash_build_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError):
+        HB.hash_build(torch.zeros(8, dtype=torch.int32))
+
+
 # ----------------------------------------------------------------------------
 # CUDA kernels against their twins, on the card
 # ----------------------------------------------------------------------------
@@ -304,3 +310,74 @@ def test_cuda_postings_select_matches_twin(rng, cuda, B, L, M, floor, C):
     assert PM.postings_select.launches == before + 1
     for g, w in zip(got, ref.postings_select(cols, counts, floor, M)):
         assert torch.equal(g, w)
+
+
+def _edge_keys():
+    """0, 2³² − 1, the key hashing onto the key-space sentinel, and the key
+    whose Fibonacci value is the Fibonacci-space sentinel (murmur3 is a
+    bijection on 32-bit keys, so each preimage is unique)."""
+    from repro_torch.core import hashing as TH
+    M = 1 << 32
+    inv = lambda x: pow(int(x), -1, M)
+    rotr = lambda x, r: ((x >> r) | (x << (32 - r))) & (M - 1)
+    unxs = lambda y, s: y ^ (y >> s) ^ ((y >> s) >> s)
+
+    def preimage(target):
+        h = unxs(target, 16)
+        h = unxs((h * inv(0xC2B2AE35)) % M, 13)
+        h = unxs((h * inv(0x85EBCA6B)) % M, 16) ^ 4
+        h = ((h - 0xE6546B64) * inv(5)) % M
+        k = (rotr(h, 13) ^ TH.DEFAULT_SEED) * inv(0x1B873593) % M
+        return rotr(k, 15) * inv(0xCC9E2D51) % M
+
+    fib_star = (TH.SENTINEL_HASH * inv(TH.FIBONACCI_MULTIPLIER)) % M
+    return np.array([0, 0xFFFFFFFF, preimage(TH.SENTINEL_HASH),
+                     preimage(fib_star)], np.uint32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [
+    ((1,), 0), ((3,), 0), ((4,), 0), ((4093,), 0), ((4093,), 1),
+    ((512, 1024), 0), (((1 << 22) + 3,), 0)])
+def test_cuda_hash_build_matches_twin(rng, cuda, shape, offset):
+    """Bit-equal h, fib and unit, edge keys included; ``offset`` starts the
+    keys 4 bytes into an allocation, which takes the unaligned path."""
+    m = int(np.prod(shape))
+    keys = rng.integers(0, 1 << 32, size=m + offset,
+                        dtype=np.uint64).astype(np.uint32)
+    keys[offset:offset + min(m, 4)] = _edge_keys()[:min(m, 4)]
+    t = torch.from_numpy(keys.view(np.int32)).to(cuda)[offset:]
+    t = t.reshape(shape)
+    before = HB.hash_build.launches
+    got = HB.hash_build(t)
+    torch.cuda.synchronize()
+    assert HB.hash_build.launches == before + 1
+    for g, w in zip(got, ref.hash_build(t)):
+        assert g.shape == t.shape and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["fused", "loop"])
+def test_cuda_build_index_matches_cpu_build(rng, cuda, engine):
+    """Tables with repeated keys and NaNs built on the card equal the CPU
+    build bit for bit, values included: each key's values are added in row
+    order on both (no atomic sums)."""
+    from repro_torch.core.sketch import Agg
+    from repro_torch.data.pipeline import TableGroup
+    from repro_torch.engine import index as TI
+    tables = []
+    for i in range(6):
+        m = int(rng.integers(300, 5000))
+        keys = rng.integers(0, m // 3, size=m).astype(np.uint32)
+        vals = rng.normal(size=(3, m)).astype(np.float32)
+        vals[:, rng.random(m) < 0.05] = np.nan
+        tables.append(TableGroup(keys=keys, values=vals, name=f"t{i}"))
+    for agg in (Agg.MEAN, Agg.SUM, Agg.LAST):
+        card = TI.build_index(tables, n=64, agg=agg, chunk=1024,
+                              engine=engine, device=cuda)
+        cpu = TI.build_index(tables, n=64, agg=agg, chunk=1024,
+                             device="cpu")
+        for f in ("key_hash", "values", "mask", "col_min", "col_max",
+                  "rows"):
+            assert torch.equal(getattr(card.shard, f).cpu(),
+                               getattr(cpu.shard, f)), (agg, f)
