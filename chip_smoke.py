@@ -22,7 +22,8 @@ failure (exit code 1, no result line):
                 (the path's launch shape) and on edge keys (0, 2³² − 1 and
                 the murmur preimages of the two sentinels; m = 4093); timed
                 at the batch shape beside its twin and its bound (16 bytes
-                a key).
+                a key), by CUDA events (the wrapper's issue rate) and by
+                ``torch.profiler`` (the kernels' device time).
   4. kernels  — each kernel runs at the shapes the query path gives it (a
                 32-query bucket against one 128-candidate score chunk) and
                 must match its plain PyTorch twin on the same inputs: 1e-5
@@ -80,12 +81,46 @@ failure (exit code 1, no result line):
                 mutations over the first 128 tables (``delta_cap=1024``) on
                 the card and on the CPU give equal top-k.
 
+  4b. rank_transform — the kernel against its twin at the library path's
+                shape (planted query 0's join samples against the first
+                16384-candidate chunk) and at edge shapes (n = 1, 7, 257,
+                2049, 4100: ties, NaNs, all-masked rows, and leading axes
+                that are not contiguous, through ``ops``): ranks equal bit
+                for bit with 0/1 masks, within 1e-5 with fractional
+                weights. Timed beside its twin and its bound, by CUDA
+                events and by ``torch.profiler``.
+  9. library  — with every launch count at 0, the paper library's
+                `topk_query` on the card for the 64 planted queries against
+                the whole corpus (a candidate stack made from the index),
+                for pearson, spearman, rin and qn × s1, s2 and s4, and
+                pearson/s3 with the bootstrap on the 4096-column
+                sub-corpus: rank_transform and qn_correlation must have
+                launched, every planted best column must be in its
+                pearson/s1 top 10, and on the sub-corpus the card must
+                equal the CPU plain path (the 12 combinations for 4
+                queries; s3 for 2 queries on 512 columns; ids except
+                near-ties, r and scores within 5e-5, m exactly).
+  10. scheduler — an `AsyncScheduler` over a static ``candidates="auto"``
+                `Server`: with ``workers=1``, 16 tickets of mixed requests
+                and widths each equal a direct `Server.query_batch` bit for
+                bit; with ``workers=2``, open-loop Poisson arrivals of
+                one-query ``safe`` tickets at 3× the sequential rate for
+                10 s (goodput, ticket latency p50/p99, deadline misses at
+                a 50 ms SLO, mean coalesce width, the dispatches made),
+                and the same arrivals with one worker; then queries race
+                appends, deletes and refreshes of a live index on the card
+                (128 tables): no ticket may fail, and once the mutations
+                stop the scheduler's results equal direct calls.
+
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
 seconds, dispatch p50/p99, qps, stage counters, survivor rungs), a
 ``lifecycle`` JSON line (append, delete, compact, save, load and refresh
 seconds, appended columns/s, segment counts, and 32-query call p50/p99
-with 8 segments and with 1), a ``phases`` JSON line (seconds per phase),
+with 8 segments and with 1), a ``library`` JSON line (ms per query per
+estimator, launches), a ``scheduler`` JSON line (sequential qps, load
+goodput, latencies, misses, coalescing, the race's ticket counts), a
+``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -96,6 +131,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -104,12 +140,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import torch  # noqa: E402
 
+from repro_torch.core import hashing  # noqa: E402
+from repro_torch.core import join as JN  # noqa: E402
+from repro_torch.core import ranking as RK  # noqa: E402
+from repro_torch.core.sketch import Agg, CorrelationSketch  # noqa: E402
 from repro_torch.data.pipeline import multi_column_group  # noqa: E402
 from repro_torch.engine import index as TI  # noqa: E402
 from repro_torch.engine import ingest as TG  # noqa: E402
 from repro_torch.engine import lifecycle as LC  # noqa: E402
 from repro_torch.engine import plans as PL  # noqa: E402
 from repro_torch.engine import serve as SV  # noqa: E402
+from repro_torch.engine.scheduler import AsyncScheduler  # noqa: E402
 from repro_torch.engine import candidates as CD  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import containment as CT  # noqa: E402
@@ -120,9 +161,12 @@ from repro_torch.kernels import sketch_join as SJ  # noqa: E402
 
 SEED = 0
 GROUPS, COLS, ROWS, N = 4096, 32, 1024, 256
-#: the kernels of the scan path, and those stage 1 adds
+#: the kernels of the scan path, those stage 1 adds, the live index's,
+#: and the paper library's
 SCAN_KERNELS = ("sketch_join_moments", "rank_moments", "qn_correlation")
 STAGE1_KERNELS = ("containment_hits", "postings_merge", "postings_select")
+LIFECYCLE_KERNELS = SCAN_KERNELS + STAGE1_KERNELS + ("hash_build",)
+LIBRARY_KERNELS = ("rank_transform", "qn_correlation")
 N_QUERIES = 64
 SUB_C = 4096
 BUCKET = 32
@@ -139,6 +183,21 @@ MINI_GROUPS = SUB_C // COLS
 MINI_CAP = SUB_C // 4
 #: 32-query calls timed per latency sample set (safe, off)
 LAT_CALLS = (8, 4)
+#: rank_transform's edge widths and rows per width
+EDGE_N = (1, 7, 257, 2049, 4100)
+EDGE_ROWS = 48
+#: the library's card-vs-CPU check: queries for the 12 combinations, and
+#: queries and columns for s3
+LIB_CPU_QUERIES = 4
+BOOT_CPU = (2, 512)
+#: the scheduler phase: mixed tickets, load seconds and multiple of the
+#: sequential rate, SLO, tickets timed sequentially, live-race tables
+SCHED_TICKETS = 16
+LOAD_S = 10.0
+LOAD_FACTOR = 3.0
+SLO_MS = 50.0
+SEQ_CALLS = 64
+RACE_STEPS = 4
 #: H100 SXM data-sheet peaks: HBM bytes/s and
 #: float32 operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -167,6 +226,33 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def kernel_us(fn, reps: int = 1):
+    """``reps`` calls of ``fn`` under ``torch.profiler`` (CUPTI): device
+    µs per kernel name, and the wall µs of the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    return by_name, wall_us
+
+
+def profiled_ms(fn, reps: int, name: str):
+    """Mean device time per call of ``fn`` in kernels whose name holds
+    ``name`` (after one warm call); None when the profiler sees none."""
+    fn()
+    torch.cuda.synchronize()
+    us = sum(v for k, v in kernel_us(fn, reps)[0].items() if name in k)
+    return us / 1e3 / reps if us else None
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -295,9 +381,12 @@ def phase_hash_build(groups, dev):
                # 4 bytes in, 12 out; murmur3 + Fibonacci + convert: 24
                # integer operations and 2 float ones a key
                work=(16 * m, 26.0 * m))
+    row["device_ms"] = profiled_ms(lambda: HB.hash_build(batch_keys), 20, "hash_build")
     corpus_ms = cuda_ms(lambda: HB.hash_build(corpus_keys), 20)
-    say(f"hash_build: corpus m={corpus_keys.numel()} ({corpus_ms:.4f} ms), "
-        f"batch {tuple(batch_keys.shape)} ({row['ms']:.4f} ms, twin "
+    corpus_dev = profiled_ms(lambda: HB.hash_build(corpus_keys), 10, "hash_build")
+    say(f"hash_build: corpus m={corpus_keys.numel()} ({corpus_ms:.4f} ms events, "
+        f"{corpus_dev} ms device), batch {tuple(batch_keys.shape)} "
+        f"({row['ms']:.4f} ms events, {row['device_ms']} ms device, twin "
         f"{row['plain_ms']:.4f} ms), edge m={edge_keys.numel()} — each equals "
         f"its twin bit for bit")
     return {"hash_build": row}
@@ -386,6 +475,93 @@ def phase_kernels(index, bucket, dev):
     return rows
 
 
+def index_sketches(index, cols=None) -> CorrelationSketch:
+    """The index's first ``cols`` columns (all when None) as a stack of
+    sketches for the paper library: values as MEAN accumulators of count
+    1, so they finalise to the index's values exactly."""
+    sh = index.shard
+    sel = slice(0, cols)
+    valid = sh.mask[sel] > 0
+    return CorrelationSketch(
+        key_hash=hashing.from_pattern(sh.key_hash[sel]), acc=sh.values[sel],
+        cnt=valid.to(torch.float32), order=torch.zeros_like(sh.values[sel]),
+        mask=valid, col_min=sh.col_min[sel], col_max=sh.col_max[sel],
+        rows=sh.rows[sel], agg=Agg.MEAN)
+
+
+def _edge_rows(rng, n, dev):
+    """EDGE_ROWS rows of width n: ties, NaNs in valid and masked slots, two
+    all-masked rows, 0/1 masks; and fractional weights with some zeros."""
+    x = (np.round(rng.normal(size=(EDGE_ROWS, n)) * 3) / 3).astype(np.float32)
+    x[0, : (n + 1) // 2] = np.nan
+    x[5, ::3] = np.nan
+    mask = (rng.random((EDGE_ROWS, n)) < 0.8).astype(np.float32)
+    mask[1] = mask[4] = 0.0
+    frac = rng.uniform(0.0, 1.0, size=(EDGE_ROWS, n)).astype(np.float32)
+    frac[2, ::2] = 0.0
+    frac[4] = 0.0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(x), t(mask), t(frac)
+
+
+def phase_rank_transform(index, keys, vals, dev):
+    """rank_transform against its twin at the library path's shape and at
+    edge shapes; timings."""
+    q = SV.build_query_sketches(keys[:1], vals[:1], n=N, device=dev).map(lambda t: t[0])
+    sj = JN.sketch_join(q, index_sketches(index, RK.CHUNK))
+    x, w = sj.a, sj.mask.to(torch.float32)
+    got, want = RT.rank_transform(x, w), ref.rank_transform(x, w)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("rank_transform kernel differs from its twin at the library shape")
+    m = sj.m.double()
+    live = int((m > 0).sum())
+    if live < COLS:
+        fail(f"only {live} rows of the library chunk joined planted query 0")
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for n in EDGE_N:
+        xe, we, wf = _edge_rows(rng, n, dev)
+        g, wt = RT.rank_transform(xe, we), ref.rank_transform(xe, we)
+        torch.cuda.synchronize()
+        if not torch.equal(g, wt):
+            fail(f"rank_transform kernel differs from its twin at n={n}")
+        if not (g[1] == 0).all() or not (g[4] == 0).all():
+            fail(f"rank_transform kernel: a masked row is not zero at n={n}")
+        worst = max(worst, check_close(f"rank_transform kernel, fractional weights, n={n}",
+                                       [RT.rank_transform(xe, wf)],
+                                       [ref.rank_transform(xe, wf)], 1e-5))
+        # leading axes that are not contiguous, through ops
+        big = torch.zeros((EDGE_ROWS, 2, n), device=dev)
+        bigw = torch.zeros((EDGE_ROWS, 2, n), device=dev)
+        big[:, 1], bigw[:, 1] = xe, we
+        view = big[:, 1].unflatten(0, (2, EDGE_ROWS // 2))
+        if view.is_contiguous():
+            fail("the ops check's view is contiguous")
+        g = ops.rank_transform(view, bigw[:, 1].unflatten(0, (2, EDGE_ROWS // 2)))
+        torch.cuda.synchronize()
+        if not torch.equal(g.reshape(EDGE_ROWS, n), wt):
+            fail(f"ops.rank_transform over a non-contiguous view differs at n={n}")
+    R, n = x.shape
+    row = dict(source="src/repro_torch/csrc/rank_transform.cu",
+               replaces="src/repro/kernels/rank_transform.py:130",
+               max_abs_err=worst,
+               ms=cuda_ms(lambda: RT.rank_transform(x, w), 50),
+               device_ms=profiled_ms(lambda: RT.rank_transform(x, w), 20,
+                                     "rank_transform"),
+               plain_ms=cuda_ms(lambda: ref.rank_transform(x, w), 5),
+               library_ms=None,
+               # every weight, x of the rows that joined, every rank out;
+               # two compares for each pair of valid slots of a live row
+               work=(R * n * 8 + live * n * 4, float(2 * (m * m).sum())))
+    say(f"rank_transform: library chunk R={R} n={n} live_rows={live} "
+        f"({row['ms']:.4f} ms events, {row['device_ms']} ms device, twin "
+        f"{row['plain_ms']:.4f} ms); edge n={list(EDGE_N)} × {EDGE_ROWS} rows "
+        f"(ties, NaNs, masked rows, a non-contiguous view) — equal to its twin, "
+        f"fractional weights within 1e-5 (max |diff| {worst})")
+    return {"rank_transform": row}
+
+
 def top_agree(want, got, what: str):
     ws, wi, wr, wm = want
     gs, gi, gr, gm = got
@@ -403,21 +579,11 @@ def top_agree(want, got, what: str):
                  f"{wi[q, p]}")
 
 
-def device_busy(srv, keys, vals, req):
-    """One request of one bucket under torch.profiler: wall ms, the share
-    of it the card spent in kernels, and the kernels that took the most.
-    The profiler slows the host, so the share is a lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        srv.query_columns(keys, vals, request=req)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+def device_busy(fn):
+    """One call of ``fn`` under torch.profiler: wall ms, the share of it
+    the card spent in kernels, and the kernels that took the most. The
+    profiler slows the host, so the share is a lower bound."""
+    by_name, wall_us = kernel_us(fn)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return dict(wall_ms=wall_us / 1e3,
                 busy_share=sum(by_name.values()) / wall_us if by_name else None,
@@ -481,7 +647,8 @@ def phase_slice(index, keys, vals, best, dev):
         top_agree(plain.query_columns(keys, vals, request=req),
                   card.query_columns(keys, vals, request=req), what)
     t_cpu = time.perf_counter() - t0
-    busy = {f"{r.estimator}/{r.scorer}": device_busy(card, keys[:BUCKET], vals[:BUCKET], r)
+    busy = {f"{r.estimator}/{r.scorer}": device_busy(
+                lambda r=r: card.query_columns(keys[:BUCKET], vals[:BUCKET], request=r))
             for r in (PL.Request(estimator="pearson"), PL.Request(estimator="qn"))}
     line = dict(columns=srv.C, n=N, queries=N_QUERIES, warmup_s=t_warm,
                 request_s=per_req, buckets=buckets, qps=tp["qps"],
@@ -875,7 +1042,7 @@ def phase_lifecycle(groups, index, keys, vals, dev):
     if not all(np.array_equal(x, y) for x, y in zip(want, again.query_batch(sk, request=req))):
         fail("the loaded snapshot serves a different top-k")
     launches = ops.launches()
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in LIFECYCLE_KERNELS):
         fail(f"a kernel of the lifecycle path was not launched: {launches}")
 
     # 7. the same mutations on the card and on the CPU
@@ -905,6 +1072,248 @@ def phase_lifecycle(groups, index, keys, vals, dev):
         f"requests == static, snapshot round trip bit-identical, "
         f"{MINI_GROUPS}-table script card == CPU")
     return launches
+
+
+def _as_rows(res):
+    """A `QueryResult` as top_agree's one-row (scores, ids, r, m) arrays."""
+    return tuple(t.cpu().numpy()[None] for t in (res.scores, res.indices,
+                                                  res.r, res.m))
+
+
+def phase_library(index, keys, vals, best, dev):
+    """The paper library's top-k query on the card over the whole corpus,
+    s3 on the sub-corpus, and the card against the CPU plain path."""
+    cands, sub = index_sketches(index), index_sketches(index, SUB_C)
+    qs = SV.build_query_sketches(keys, vals, n=N, device=dev)
+    one = lambda q: qs.map(lambda t: t[q])
+    combos = [(e, sc) for e in PL.ESTIMATORS for sc in PL.FAST_SCORERS]
+    boot_gen = lambda q: torch.Generator().manual_seed(SEED + q)
+    ops.reset_launches()
+    ms, results = {}, {}
+    for est, sc in combos:
+        t0 = time.perf_counter()
+        for q in range(N_QUERIES):
+            results[(est, sc, q)] = RK.topk_query(one(q), cands, k=10, estimator=est,
+                                                  scorer=sc, device=dev)
+        torch.cuda.synchronize()
+        ms[f"{est}/{sc}"] = 1e3 * (time.perf_counter() - t0) / N_QUERIES
+    t0 = time.perf_counter()
+    boot = [RK.topk_query(one(q), sub, k=10, scorer="s3", bootstrap=True,
+                          generator=boot_gen(q), device=dev) for q in range(N_QUERIES)]
+    torch.cuda.synchronize()
+    ms["pearson/s3 (sub-corpus)"] = 1e3 * (time.perf_counter() - t0) / N_QUERIES
+    launches = ops.launches()
+    if not all(launches[k] > 0 for k in LIBRARY_KERNELS):
+        fail(f"a kernel of the library path was not launched: {launches}")
+
+    missed = [q for q in range(N_QUERIES)
+              if best[q] not in results[("pearson", "s1", q)].indices.tolist()]
+    if missed:
+        fail(f"library: planted columns missing from the pearson/s1 top-10: {missed}")
+    for (est, sc, q), res in results.items():
+        if not bool(torch.isfinite(res.scores[0])):
+            fail(f"library {est}/{sc}: query {q} found no eligible candidate")
+    for q, res in enumerate(boot):
+        if 2 * q * COLS < SUB_C and not (bool(torch.isfinite(res.scores[0]))
+                                         and int(res.indices[0]) // COLS == 2 * q):
+            fail(f"library pearson/s3: query {q}'s best is not a column of its table")
+
+    # the card against the CPU plain path on the sub-corpus
+    t0 = time.perf_counter()
+    sub_cpu = sub.map(lambda t: t.cpu())
+    for q in range(LIB_CPU_QUERIES):
+        for est, sc in combos:
+            kw = dict(k=10, estimator=est, scorer=sc)
+            top_agree(_as_rows(RK.topk_query(one(q), sub_cpu, device="cpu", **kw)),
+                      _as_rows(RK.topk_query(one(q), sub, device=dev, **kw)),
+                      f"library sub-corpus {est}/{sc} query {q}: card vs CPU")
+    nq, cols = BOOT_CPU
+    for q in range(nq):
+        kw = dict(k=10, scorer="s3", bootstrap=True)
+        top_agree(_as_rows(RK.topk_query(one(q), sub_cpu.map(lambda t: t[:cols]),
+                                         generator=boot_gen(q), device="cpu", **kw)),
+                  _as_rows(RK.topk_query(one(q), sub.map(lambda t: t[:cols]),
+                                         generator=boot_gen(q), device=dev, **kw)),
+                  f"library {cols} columns pearson/s3 query {q}: card vs CPU")
+    t_cpu = time.perf_counter() - t0
+    per_est = {e: float(np.mean([ms[f"{e}/{sc}"] for sc in PL.FAST_SCORERS]))
+               for e in PL.ESTIMATORS}
+    busy = {f"{e}/s4": device_busy(lambda e=e: RK.topk_query(
+                one(0), cands, k=10, estimator=e, scorer="s4", device=dev))
+            for e in ("pearson", "rin")}
+    busy["pearson/s3 (sub-corpus)"] = device_busy(lambda: RK.topk_query(
+        one(0), sub, k=10, scorer="s3", bootstrap=True, generator=boot_gen(0),
+        device=dev))
+    line = dict(columns=cands.key_hash.shape[0], n=N, queries=N_QUERIES,
+                chunk=RK.CHUNK, ms_per_query=ms, ms_per_query_by_estimator=per_est,
+                launches={k: launches[k] for k in LIBRARY_KERNELS},
+                profiled_query_0=busy,
+                planted_in_s1_top10=N_QUERIES - len(missed), cpu_check_s=t_cpu)
+    say("library " + json.dumps(line))
+    say(f"library: {len(combos)} combinations × {N_QUERIES} queries over "
+        f"{line['columns']} columns and pearson/s3 over {SUB_C}; planted "
+        f"columns found; card == CPU plain path ({LIB_CPU_QUERIES} queries × "
+        f"{len(combos)} on {SUB_C} columns, s3 on {BOOT_CPU[1]})")
+    return launches
+
+
+def _same(got, want) -> bool:
+    return all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def _race(groups, sk, dev):
+    """Queries through a two-worker scheduler race appends, deletes and
+    refreshes of a live index on the card; afterwards the scheduler's
+    results equal direct calls."""
+    first = MINI_GROUPS * 3 // 4
+    live = LC.LiveIndex(n=N, delta_cap=MINI_CAP, device=dev)
+    live.append(groups[:first])
+    req = PL.Request(prune="safe", scorer="s1")
+    srv = SV.Server(live, PL.ShapePolicy(candidates="auto"), request=req,
+                    buckets=(1, 8, BUCKET))
+    srv.warmup(modes=("off", "safe"), include_ladder=True)
+    parts = [sk.map(lambda t, s=s: t[s:s + 4]) for s in range(0, 16, 4)]
+    served, errors = [], []
+    stop = threading.Event()
+
+    def loop(sched, j):
+        while not stop.is_set():
+            try:
+                sched.query(parts[j % len(parts)], request=req, timeout=600)
+            except Exception as e:   # every failure is reported below
+                errors.append(repr(e))
+                return
+            served.append(j)
+
+    new = groups[first:MINI_GROUPS]
+    step = len(new) // RACE_STEPS
+    with AsyncScheduler(srv, workers=2) as sched:
+        threads = [threading.Thread(target=loop, args=(sched, j)) for j in range(3)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        for i in range(RACE_STEPS):
+            live.append(new[i * step:(i + 1) * step])
+            srv.refresh()
+            time.sleep(0.05)
+            live.delete(f"g{2 * i}")
+            srv.refresh()
+            time.sleep(0.05)
+        t_mut = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads):
+            fail(f"scheduler race: tickets failed or hung: {errors}")
+        for r in (req, PL.Request(prune="safe"), PL.Request(estimator="spearman")):
+            for part in parts:
+                if not _same(sched.query(part, request=r, timeout=600),
+                             srv.query_batch(part, request=r)):
+                    fail(f"scheduler after the race: {r} differs from a direct call")
+        st = sched.stats()
+    return dict(tables=MINI_GROUPS, mutations=2 * RACE_STEPS, mutation_s=t_mut,
+                tickets_during_race=len(served), errors=st["errors"],
+                segments=live.stats()["segments"])
+
+
+def _open_loop(srv, singles, arrivals, req, workers: int) -> dict:
+    """One-query tickets of ``req`` submitted at the ``arrivals`` (seconds
+    from the start) to a scheduler of ``workers`` with the SLO: goodput,
+    ticket latencies, misses, coalescing and the dispatches it made."""
+    n0 = len(srv.dispatch_log)
+    with AsyncScheduler(srv, workers=workers, slo_ms=SLO_MS) as sched:
+        start = time.monotonic()
+        sent = []
+        for i, at in enumerate(arrivals):
+            delay = start + at - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            sent.append(sched.submit(singles[i % len(singles)], request=req))
+        for t in sent:
+            t.result(timeout=600)
+        st = sched.stats()
+        depth = srv.throughput()["queue_depth"]
+    if st["errors"] or st["completed"] != len(sent) or depth:
+        fail(f"scheduler load ({workers} workers): {st}, queue depth {depth}")
+    end = max(t.t_done for t in sent)
+    lat = np.array([t.latency_s for t in sent])
+    on_time = sum(not t.missed_deadline for t in sent)
+    by_bucket = {}
+    for B, nq, dt in list(srv.dispatch_log)[n0:]:
+        by_bucket.setdefault(B, []).append((nq, dt))
+    return dict(
+        workers=workers, tickets=len(sent), goodput_qps=on_time / (end - start),
+        completed_qps=len(sent) / (end - start),
+        latency_p50_ms=1e3 * float(np.percentile(lat, 50)),
+        latency_p99_ms=1e3 * float(np.percentile(lat, 99)),
+        deadline_misses=st["deadline_misses"], avg_coalesce=st["avg_coalesce"],
+        batches=st["batches"], flush_deadline=st["flush_deadline"],
+        flush_full=st["flush_full"], flush_drain=st["flush_drain"],
+        dispatches={str(B): dict(count=len(v), queries=sum(q for q, _ in v),
+                                 p50_ms=1e3 * float(np.median([d for _, d in v])),
+                                 p99_ms=1e3 * float(np.percentile([d for _, d in v], 99)))
+                    for B, v in sorted(by_bucket.items())})
+
+
+def phase_scheduler(index, groups, keys, vals, dev):
+    """AsyncScheduler: bit-identity with workers=1, open-loop load with
+    two workers and with one, and queries racing mutations of a live
+    index."""
+    sk = SV.build_query_sketches(keys, vals, n=N, device=dev)
+    # the default request prices the buckets the admission loop plans with
+    srv = SV.Server(index, PL.ShapePolicy(candidates="auto"),
+                    request=PL.Request(prune="safe"), buckets=(1, 8, BUCKET))
+    t0 = time.perf_counter()
+    srv.warmup(modes=("off", "safe"))
+    line = dict(warmup_s=time.perf_counter() - t0)
+
+    # 1. one worker: each ticket equals a direct call, bit for bit
+    tickets, s = [], 0
+    for i in range(SCHED_TICKETS):
+        width = 1 + i % 4
+        part = sk.map(lambda t, s=s, w=width: t[s:s + w])
+        s = (s + width) % (N_QUERIES - 4)
+        if i % 4 == 3:
+            req = PL.Request(k=10)
+        else:
+            req = PL.Request(prune="safe", k=(3, 5, 10)[i % 3],
+                             estimator=PL.ESTIMATORS[i % 4],
+                             scorer=PL.FAST_SCORERS[i % 3])
+        tickets.append((part, req))
+    with AsyncScheduler(srv, workers=1) as sched:
+        sent = [sched.submit(part, request=req) for part, req in tickets]
+        for t, (part, req) in zip(sent, tickets):
+            if not _same(t.result(timeout=600), srv.query_batch(part, request=req)):
+                fail(f"scheduler (workers=1): a ticket of {req} differs from a direct call")
+        line["workers1"] = sched.stats()
+
+    # 2. open-loop arrivals at LOAD_FACTOR × the sequential rate: two
+    # workers, then the same arrivals with one
+    load = PL.Request(prune="safe")
+    singles = [sk.map(lambda t, i=i: t[i:i + 1]) for i in range(N_QUERIES)]
+    t0 = time.perf_counter()
+    for i in range(SEQ_CALLS):
+        srv.query_batch(singles[i % N_QUERIES], request=load)
+    seq_qps = SEQ_CALLS / (time.perf_counter() - t0)
+    rate = LOAD_FACTOR * seq_qps
+    gaps = np.random.default_rng(SEED).exponential(1.0 / rate, size=int(2 * LOAD_S * rate) + 16)
+    arrivals = np.cumsum(gaps)
+    arrivals = arrivals[arrivals < LOAD_S]
+    line.update(sequential_qps=seq_qps, arrival_rate_qps=rate, load_s=LOAD_S,
+                slo_ms=SLO_MS, offered_qps=len(arrivals) / LOAD_S,
+                bucket_cost_ms={str(b): 1e3 * c for b, c in sorted(srv._bucket_cost.items())})
+    line["load"] = _open_loop(srv, singles, arrivals, load, workers=2)
+    line["load_workers1"] = _open_loop(srv, singles, arrivals, load, workers=1)
+
+    # 3. queries racing mutations of a live index
+    line["race"] = _race(groups, sk, dev)
+    say("scheduler " + json.dumps(line))
+    say(f"scheduler: {SCHED_TICKETS} mixed tickets == direct calls (workers=1); "
+        f"{line['load']['tickets']} open-loop tickets at {rate:.1f}/s (3× sequential "
+        f"{seq_qps:.1f}/s): goodput {line['load']['goodput_qps']:.1f}/s with 2 "
+        f"workers, {line['load_workers1']['goodput_qps']:.1f}/s with 1; "
+        f"{line['race']['tickets_during_race']} tickets raced "
+        f"{line['race']['mutations']} mutations with no failure, then == direct calls")
 
 
 def main() -> None:
@@ -946,6 +1355,7 @@ def main() -> None:
     rows = timed("hash_build", phase_hash_build, groups, dev)
     bucket = kernel_inputs(groups, SV.Server(index, buckets=(BUCKET,)).chunk_for(BUCKET))
     rows.update(timed("kernels", phase_kernels, index, bucket, dev))
+    rows.update(timed("rank_transform", phase_rank_transform, index, keys, vals, dev))
     launches = timed("slice", phase_slice, index, keys, vals, best, dev)
     rows.update(timed("stage1_kernels", phase_stage1_kernels, index, keys, vals, dev))
     launches.update({k: v for k, v in timed("two_stage", phase_two_stage, index,
@@ -953,6 +1363,9 @@ def main() -> None:
                      if k in STAGE1_KERNELS})
     launches["hash_build"] = timed("lifecycle", phase_lifecycle, groups, index,
                                    keys, vals, dev)["hash_build"]
+    launches["rank_transform"] = timed("library", phase_library, index, keys, vals,
+                                       best, dev)["rank_transform"]
+    timed("scheduler", phase_scheduler, index, groups, keys, vals, dev)
     say("phases " + json.dumps(phases))
 
     kernels = []

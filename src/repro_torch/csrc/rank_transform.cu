@@ -9,6 +9,18 @@
 // qn_correlation replaces src/repro/kernels/rank_transform.py::
 // qn_correlation: the Shevlyakov–Oja robust correlation from four Qn scales.
 //
+// rank_transform replaces src/repro/kernels/rank_transform.py::
+// rank_transform: the weighted midranks themselves, per row,
+//   rank_i = (Σ_j w_j[x_j < x_i] + ½ Σ_j w_j[x_j = x_i] + ½) · w_i,
+// for the paper library's Spearman and RIN estimators (core/estimators).
+// One block per row; the row's weights are read first, and a row with no
+// nonzero weight writes zeros without reading x. The j loop stages the row
+// through shared memory a tile at a time, so any n runs; each thread holds
+// one x_i and adds the weights of its tile's smaller and equal values in
+// ascending j order (f32). With 0/1 weights every sum is an integer below
+// 2²⁴, so ranks are exact half-integers. What bounds it: operations, two
+// compares per pair of live slots, O(n²) per row against O(n) bytes.
+//
 // What bounds them on an H100: bytes, at the engine's data. Rows are join
 // samples and most candidates share no key with the query (m = 0), so the
 // kernels read a row's mask first and read its a and b only when the row
@@ -201,7 +213,60 @@ qn_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+rank_transform_kernel(const float* __restrict__ x, const float* __restrict__ w, int n,
+                      float* __restrict__ out) {
+  __shared__ float tx[kThreads];
+  __shared__ float tw[kThreads];
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  int any = 0;  // block-uniform
+  for (int start = 0; start < n && !any; start += blockDim.x) {
+    const int i = start + threadIdx.x;
+    any = __syncthreads_or(i < n && w[base + i] != 0.f);
+  }
+  if (!any) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = 0.f;
+    return;
+  }
+  for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const float wi = i < n ? w[base + i] : 0.f;
+    const float xi = wi != 0.f ? x[base + i] : 0.f;
+    float less = 0.f, equal = 0.f;
+    for (int j0 = 0; j0 < n; j0 += blockDim.x) {
+      const int tile = min(static_cast<int>(blockDim.x), n - j0);
+      __syncthreads();  // the previous tile has been read
+      if (threadIdx.x < tile) {
+        tx[threadIdx.x] = x[base + j0 + threadIdx.x];
+        tw[threadIdx.x] = w[base + j0 + threadIdx.x];
+      }
+      __syncthreads();
+      if (wi != 0.f) {
+        for (int j = 0; j < tile; ++j) {
+          const float xj = tx[j], wj = tw[j];
+          if (xj < xi) {
+            less = __fadd_rn(less, wj);
+          } else if (xj == xi) {
+            equal = __fadd_rn(equal, wj);
+          }
+        }
+      }
+    }
+    if (i < n) {
+      const float r = __fadd_rn(__fadd_rn(less, __fmul_rn(0.5f, equal)), 0.5f);
+      out[base + i] = wi != 0.f ? __fmul_rn(r, wi) : 0.f;
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int rank_transform_launch(const void* x, const void* w, int R, int n, void* out,
+                                     void* stream) {
+  rank_transform_kernel<<<R, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), n, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // table: the rankit table [(n+1)·(2n+1)] for kind 1 (rin), unused for kind 0.
 extern "C" int rank_moments_launch(const void* a, const void* b, const void* w, int R, int n,

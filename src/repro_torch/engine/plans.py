@@ -113,6 +113,18 @@ def request_operands(req: Request) -> np.ndarray:
                       np.float32)
 
 
+def coalesce_key(req: Request) -> tuple:
+    """Request-compatibility key of the admission queue
+    (`repro_torch.engine.scheduler`): requests with equal keys ride one
+    dispatch — same estimator, scorer, prune mode, α and eligibility floor.
+    ``k`` is left out: a coalesced dispatch runs at the group's largest k
+    and each member keeps its own first k. Validates the request, so a bad
+    one fails at submit time, not inside a worker."""
+    request_operands(req)
+    return (req.estimator, req.scorer, req.prune, float(req.alpha),
+            int(req.min_sample))
+
+
 def _score_block(q_kh, q_val, q_mask, kh, vals, mask, est: str):
     """One candidate block: moments ``[B, chunk, 6]`` and r ``[B, chunk]``
     under estimator ``est``. The rank and Qn estimators work on the join

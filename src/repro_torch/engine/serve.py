@@ -631,6 +631,9 @@ class Server:
         self._retired_dispatches = 0
         self._retired_stage_s: Dict[str, float] = {}
         self._retired_stage_n: Dict[str, int] = {}
+        #: the `repro_torch.engine.scheduler.AsyncScheduler` attached to
+        #: this server, whose queue counters `throughput` reports
+        self._scheduler = None
         if isinstance(source, LC.LiveIndex):
             self._live = source
             self.n = source.n
@@ -892,9 +895,17 @@ class Server:
         dispatch-level numbers (latency percentiles included). A live index
         counts logical queries (one per query, however many segments it
         fans out to) in ``queries``/``qps`` and the segment dispatches of
-        live and retired executors in ``dispatches`` and ``stages``."""
-        if self._live is None:
-            return self._view[0].exec.throughput()
+        live and retired executors in ``dispatches`` and ``stages``. With
+        a scheduler attached, its ``queue_depth`` and ``deadline_misses``
+        join them."""
+        out = (self._view[0].exec.throughput() if self._live is None
+               else self._live_throughput())
+        sched = self._scheduler
+        if sched is not None:
+            out.update(sched.queue_stats())
+        return out
+
+    def _live_throughput(self) -> dict:
         view = self._view
         with self._stats_lock:
             q_total, q_seconds = self._q_total, self._q_seconds

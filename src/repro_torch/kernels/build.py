@@ -31,6 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.RLock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: guards the wrappers' ``launches`` counts: kernels launch from several
+#: threads (the async scheduler's workers), and a bare ``+=`` loses updates
+LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to the launch count of wrapper ``fn``."""
+    with LAUNCH_LOCK:
+        fn.launches += 1
 
 
 def _nvcc() -> str:

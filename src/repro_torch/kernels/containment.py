@@ -56,7 +56,7 @@ def containment_hits_batched(q_kh, q_mask, c_kh, c_mask):
                            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"containment kernel launch failed: CUDA error {err}")
-    containment_hits_batched.launches += 1
+    build.count_launch(containment_hits_batched)
     return hits
 
 

@@ -43,7 +43,7 @@ def hash_build(keys):
                            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"hash_build kernel launch failed: CUDA error {err}")
-    hash_build.launches += 1
+    build.count_launch(hash_build)
     return h, fib, unit
 
 

@@ -23,6 +23,7 @@ LAUNCH_COUNTERS = {
     "sketch_join_moments": _sj.sketch_join_moments_batched,
     "rank_moments": _rt.rank_moments,
     "qn_correlation": _rt.qn_correlation,
+    "rank_transform": _rt.rank_transform,
     "containment_hits": _ct.containment_hits_batched,
     "postings_merge": _pm.postings_merge,
     "postings_select": _pm.postings_select,
@@ -47,12 +48,14 @@ def load_kernels(device: torch.device) -> None:
 
 
 def reset_launches() -> None:
-    for fn in LAUNCH_COUNTERS.values():
-        fn.launches = 0
+    with build.LAUNCH_LOCK:
+        for fn in LAUNCH_COUNTERS.values():
+            fn.launches = 0
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
+    with build.LAUNCH_LOCK:
+        return {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
 
 
 def sketch_join_moments_batched(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
@@ -83,6 +86,15 @@ def qn_correlation(a, b, mask):
     lead, n = a.shape[:-1], a.shape[-1]
     flat = lambda x: x.reshape(-1, n)
     return _rt.qn_correlation(flat(a), flat(b), flat(mask)).reshape(lead)
+
+
+def rank_transform(x, mask):
+    """Weighted midranks per row (`ref.rank_transform`): x, mask f32
+    [..., n] (mask may be bool) → f32[..., n], 0 in masked slots."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    flat = lambda t: t.to(torch.float32).reshape(-1, n).contiguous()
+    impl = _rt.rank_transform if _on_cuda(x) else _ref.rank_transform
+    return impl(flat(x), flat(mask)).reshape(*lead, n)
 
 
 def containment_hits_batched(q_kh, q_mask, c_kh, c_mask):

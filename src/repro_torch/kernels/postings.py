@@ -63,7 +63,7 @@ def postings_merge(cand):
             cols.data_ptr(), counts.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"postings_merge kernel launch failed: CUDA error {err}")
-    postings_merge.launches += 1
+    build.count_launch(postings_merge)
     return cols, counts
 
 
@@ -92,7 +92,7 @@ def postings_select(cols, counts, floor, M: int, C: int):
             _stream(dev))
     if err:
         raise RuntimeError(f"postings_select kernel launch failed: CUDA error {err}")
-    postings_select.launches += 1
+    build.count_launch(postings_select)
     return surv, valid, n_surv
 
 

@@ -2,9 +2,11 @@
 
 ``rank_moments`` replaces the Pallas kernel ``repro.kernels.rank_transform.
 rank_moments`` (spearman and rin); ``qn_correlation`` replaces ``repro.
-kernels.rank_transform.qn_correlation``. Semantics: the plain twins
-`repro_torch.kernels.ref.rank_moments` / `qn_correlation`. Both take
-``[R, n]`` rows; `repro_torch.kernels.ops` flattens leading axes.
+kernels.rank_transform.qn_correlation``; ``rank_transform`` replaces
+``repro.kernels.rank_transform.rank_transform`` (the paper library's
+midranks). Semantics: the plain twins `repro_torch.kernels.ref.
+rank_moments` / `qn_correlation` / `rank_transform`. All take ``[R, n]``
+rows; `repro_torch.kernels.ops` flattens leading axes.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "rank_moments_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "qn_correlation_launch": [_P, _P, _P, _I, _I, _P, _P],
+    "rank_transform_launch": [_P, _P, _I, _I, _P, _P],
 }
 
 
@@ -64,7 +67,7 @@ def rank_moments(a, b, mask, kind: str = "spearman"):
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"rank_moments kernel launch failed: CUDA error {err}")
-    rank_moments.launches += 1
+    build.count_launch(rank_moments)
     return out
 
 
@@ -80,9 +83,35 @@ def qn_correlation(a, b, mask):
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"qn_correlation kernel launch failed: CUDA error {err}")
-    qn_correlation.launches += 1
+    build.count_launch(qn_correlation)
+    return out
+
+
+def rank_transform(x, mask):
+    """Launch the kernel: x, mask f32[R, n] → f32[R, n]. Any n: the row
+    streams through shared memory in tiles."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the rank_transform kernel runs on CUDA, not {dev}")
+    if x.dim() != 2:
+        raise ValueError(f"rank_transform: expected [R, n] rows, got "
+                         f"{tuple(x.shape)}")
+    R, n = x.shape
+    check(x, "x", torch.float32, (R, n), dev)
+    check(mask, "mask", torch.float32, (R, n), dev)
+    out = torch.empty((R, n), dtype=torch.float32, device=dev)
+    if R == 0 or n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _fn("rank_transform_launch")(
+            x.data_ptr(), mask.data_ptr(), R, n, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"rank_transform kernel launch failed: CUDA error {err}")
+    build.count_launch(rank_transform)
     return out
 
 
 rank_moments.launches = 0
 qn_correlation.launches = 0
+rank_transform.launches = 0

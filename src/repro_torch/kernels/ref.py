@@ -248,6 +248,37 @@ def rank_moments(a, b, mask, kind: str = "spearman"):
 
 
 # ----------------------------------------------------------------------------
+# rank_transform: weighted midranks
+# ----------------------------------------------------------------------------
+
+#: elements of one [rows, n, n] compare tensor of `rank_transform`
+_RANK_CHUNK = 1 << 24
+
+
+def rank_transform(x, mask):
+    """Per row, ``rank_i = (Σ_j w_j[x_j < x_i] + ½ Σ_j w_j[x_j = x_i] + ½)
+    · w_i`` with weights ``w = mask``: for a 0/1 mask, the average rank
+    (ties share their mean rank) among the valid entries, 0 in masked
+    slots. NaNs compare false, so a NaN gets rank ½ and counts for no one.
+    x, mask f32[R, n] → f32[R, n]. Rows without a nonzero weight are zeros
+    and skipped; the others go in chunks that bound the pairwise compare
+    tensor."""
+    R, n = x.shape
+    w = mask.to(torch.float32)
+    out = torch.zeros((R, n), dtype=torch.float32, device=x.device)
+    live = torch.nonzero((w != 0).any(-1)).squeeze(-1)
+    step = max(1, _RANK_CHUNK // max(n * n, 1))
+    for s in range(0, live.shape[0], step):
+        rows = live[s:s + step]
+        xs, ws = x[rows], w[rows]
+        wj = ws[:, None, :]
+        less = torch.where(xs[:, None, :] < xs[:, :, None], wj, 0.0).sum(-1)
+        equal = torch.where(xs[:, None, :] == xs[:, :, None], wj, 0.0).sum(-1)
+        out[rows] = (less + 0.5 * equal + 0.5) * ws
+    return out
+
+
+# ----------------------------------------------------------------------------
 # qn_correlation: Shevlyakov–Oja robust correlation, sort + bisection
 # ----------------------------------------------------------------------------
 

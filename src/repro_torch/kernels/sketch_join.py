@@ -74,7 +74,7 @@ def sketch_join_moments_batched(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sketch_join kernel launch failed: CUDA error {err}")
-    sketch_join_moments_batched.launches += 1
+    build.count_launch(sketch_join_moments_batched)
     return mom, aligned, hit
 
 

@@ -17,9 +17,11 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 26, mods
+assert len(mods) >= 31, mods
 for new in ("core.containment", "engine.candidates", "kernels.containment",
-            "kernels.postings", "engine.lifecycle", "kernels.hash_build"):
+            "kernels.postings", "engine.lifecycle", "kernels.hash_build",
+            "core.estimators", "core.join", "core.ranking",
+            "engine.scheduler", "quickstart"):
     assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
@@ -65,3 +67,37 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         TSV.Server(live)
     with pytest.raises(RuntimeError, match="CUDA"):
         TL.LiveIndex.load("unused")
+
+
+def test_library_and_scheduler_need_a_device_without_cuda(monkeypatch):
+    """With no card, `topk_query` and the quickstart called without
+    ``device=`` raise, as does the `Server` an `AsyncScheduler` would
+    drive; with ``device="cpu"`` both run."""
+    from repro_torch import quickstart
+    from repro_torch.core import build_sketch, hashing, stack_sketches, topk_query
+    from repro_torch.data.pipeline import multi_column_group
+    from repro_torch.engine import index as TI
+    from repro_torch.engine import serve as TSV
+    from repro_torch.engine.scheduler import AsyncScheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    keys = rng.choice(1 << 20, size=300, replace=False).astype(np.uint32)
+    sk = lambda: build_sketch(hashing.keys_tensor(keys),
+                              torch.from_numpy(rng.normal(size=300).astype(np.float32)),
+                              n=16)
+    q, cands = sk(), stack_sketches([sk(), sk()])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        topk_query(q, cands, k=2)
+    assert topk_query(q, cands, k=2, device="cpu").indices.shape == (2,)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
+    tables = [multi_column_group(rng, n_cols=2, n_max=600)]
+    index = TI.build_index(tables, n=16, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AsyncScheduler(TSV.Server(index))
+    srv = TSV.Server(index, device="cpu")
+    with AsyncScheduler(srv, workers=1) as sched:
+        qs = TSV.build_query_sketches([tables[0].keys], [tables[0].values[0]],
+                                      n=16, device="cpu")
+        assert sched.query(qs, timeout=60)[1].shape == (1, 10)

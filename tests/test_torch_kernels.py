@@ -73,6 +73,19 @@ def _rank_inputs(rng, R, n):
     return a, b, mask
 
 
+def _transform_inputs(rng, R, n, ties=True):
+    """Rows for rank_transform: ties, NaNs in valid and masked slots, 0/1
+    masks with an all-masked row (R ≥ 2), any n ≥ 1."""
+    x = rng.normal(size=(R, n)).astype(np.float32)
+    if ties:
+        x = np.round(x * 3) / 3
+    mask = (rng.random((R, n)) < 0.8).astype(np.float32)
+    x[0, : (n + 1) // 2] = np.nan
+    if R > 1:
+        mask[1] = 0.0
+    return x.astype(np.float32), mask
+
+
 def _close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
                                atol=tol)
@@ -151,6 +164,43 @@ def test_qn_twin_matches_reference_and_pallas(rng, jx):
     assert got[0] == 0 and got[1] == 0   # no valid pair → r = 0
 
 
+@pytest.mark.parametrize("R,n,ties", [(8, 64, False), (16, 256, True),
+                                      (4, 512, True), (8, 1, False),
+                                      (8, 7, True)])
+def test_rank_transform_twin_matches_reference_and_pallas(rng, jx, R, n, ties):
+    """Twin == `ref.rank_transform` and the Pallas kernel (interpret mode)
+    bit for bit, at tests/test_kernels.py's shapes plus NaNs and edge
+    widths: with 0/1 masks every rank is an exact half-integer."""
+    x, mask = _transform_inputs(rng, R, n, ties)
+    got = ref.rank_transform(torch.from_numpy(x), torch.from_numpy(mask))
+    args = [jx.jnp.asarray(x), jx.jnp.asarray(mask)]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jx.ref.rank_transform(*args)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jx.ops.rank_transform(*args, jx.interp)))
+    assert (got[1] == 0).all()
+
+
+def test_rank_transform_twin_matches_blocked_pallas(rng, jx):
+    """The Pallas kernel's blocked column sweep (block_n < n) gives the
+    same ranks as the twin."""
+    from repro.kernels import rank_transform as JRT
+    x, mask = _transform_inputs(rng, 8, 128)
+    got = ref.rank_transform(torch.from_numpy(x), torch.from_numpy(mask))
+    want = JRT.rank_transform(jx.jnp.asarray(x), jx.jnp.asarray(mask),
+                              block_r=2, block_n=32, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_rank_transform_twin_fractional_weights(rng, jx):
+    """With fractional weights the twin is the reference's weighted rank
+    to float32 rounding."""
+    x, _ = _transform_inputs(rng, 6, 96)
+    w = rng.uniform(0.0, 1.0, size=x.shape).astype(np.float32)
+    w[2, ::3] = 0.0
+    got = ref.rank_transform(torch.from_numpy(x), torch.from_numpy(w))
+    _close(got, jx.ref.rank_transform(jx.jnp.asarray(x), jx.jnp.asarray(w)), 1e-5)
+
+
 def test_moment_statistics_match_reference(rng, jx):
     """pearson_from_moments and hoeffding_from_moments == the reference on
     the same moments (degenerate m < 2 rows included)."""
@@ -178,6 +228,9 @@ def test_ops_route_cpu_tensors_to_twins(rng):
     assert out.shape == (2, 3, 6)
     torch.testing.assert_close(out.reshape(6, 6), ref.rank_moments(a, b, mask))
     assert ops.qn_correlation(a, b, mask).shape == (6,)
+    ranks = ops.rank_transform(a.reshape(2, 3, 16), mask.reshape(2, 3, 16) > 0)
+    torch.testing.assert_close(ranks.reshape(6, 16), ref.rank_transform(a, mask),
+                               rtol=0, atol=0)
     assert ops.launches() == dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
 
 
@@ -191,6 +244,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(rng):
         RT.rank_moments(a, b, mask)
     with pytest.raises(ValueError):
         RT.qn_correlation(a, b, mask)
+    with pytest.raises(ValueError):
+        RT.rank_transform(a, mask)
 
 
 def test_hash_build_wrapper_refuses_cpu_tensors():
@@ -238,6 +293,24 @@ def test_cuda_qn_matches_twin(rng, cuda, R, n):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.qn_correlation(a, b, mask),
                                rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,n", [(12, 1), (12, 7), (64, 256), (7, 257),
+                                 (3, 2049), (2, 4100)])
+def test_cuda_rank_transform_matches_twin(rng, cuda, R, n):
+    """0/1 masks: equal to the twin bit for bit (ties, NaNs, a masked
+    row); fractional weights: within 1e-5; leading axes through ops."""
+    x, mask = (torch.from_numpy(v).to(cuda) for v in _transform_inputs(rng, R, n))
+    got = RT.rank_transform(x, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.rank_transform(x, mask))
+    w = torch.from_numpy(rng.uniform(0, 1, size=(R, n)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(RT.rank_transform(x, w), ref.rank_transform(x, w),
+                               rtol=1e-5, atol=1e-5)
+    wide = torch.stack([x, x.flip(0)], dim=1)      # [R, 2, n], then a view
+    got = ops.rank_transform(wide[:, 1], torch.stack([mask, mask.flip(0)], 1)[:, 1])
+    assert torch.equal(got, ref.rank_transform(x.flip(0), mask.flip(0)))
 
 
 def _containment_inputs(rng, B, nq, n, C, universe):
