@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's join-correlation query paths on one CUDA card.
+"""Drive the PyTorch port's join-correlation query paths, and its LM
+serving path, on one CUDA card.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports only
@@ -111,6 +112,29 @@ failure (exit code 1, no result line):
                 appends, deletes and refreshes of a live index on the card
                 (128 tables): no ticket may fail, and once the mutations
                 stop the scheduler's results equal direct calls.
+  11. flash_attention — the kernel against its twin (2e-3 with a float32
+                output, 2e-2 with bfloat16: the reference sweep's
+                tolerances) at the LM path's prefill shape (q [4, 32, 2016,
+                64] f32, k/v [4, 4, 2016, 64] f32, causal) and decode shape
+                (q [4, 32, 1, 64] f32 over a [4, 4, 2048, 64] bf16 cache), the
+                reference sweep's five cases, hymba's 25-over-5 heads at L =
+                2048 with window 1024 and without, and ragged edges (Lq = Lk
+                = 37, Lq = 1, Lq > Lk causal, whose first rows see no key:
+                0); timed at both path shapes beside its twin and its bound,
+                by CUDA events and ``torch.profiler``, and at the prefill
+                shape beside one ``scaled_dot_product_attention`` call (a
+                yardstick, never on the path).
+  12. lm      — tinyllama-1.1b at full width (22 layers, f32 weights from
+                SEED, bf16 cache as its config says) serves 4 prompts of
+                2016 tokens from ``lm_batch``: ``prefill`` and 32 greedy
+                ``decode_step``s; with every launch count at 0, the path
+                must launch flash_attention 22 + 22 × 32 times. Checks: (a)
+                the same calls with every attention on the twin (logits
+                within LM_TOL of the largest, caches within 2e-2); (b) the
+                reference's cache check in float32: prefill and decode
+                logits equal ``forward_logits`` within 2e-3 and 5e-3 of the
+                largest logit; (c) at 2 layers on 1 × 256 tokens, prefill
+                and 4 decode steps equal the CPU plain path (LM_TOL).
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
@@ -119,11 +143,15 @@ seconds, dispatch p50/p99, qps, stage counters, survivor rungs), a
 seconds, appended columns/s, segment counts, and 32-query call p50/p99
 with 8 segments and with 1), a ``library`` JSON line (ms per query per
 estimator, launches), a ``scheduler`` JSON line (sequential qps, load
-goodput, latencies, misses, coalescing, the race's ticket counts), a
-``phases`` JSON line (seconds per phase),
+goodput, latencies, misses, coalescing, the race's ticket counts), an
+``lm`` JSON line (prefill seconds and tokens/s, decode ms per step p50 and
+p99, peak device memory, flash_attention launches, the checks' errors and
+a profile of one prefill and one decode step: attention, matrix products,
+the rest), a ``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -153,7 +181,12 @@ from repro_torch.engine import serve as SV  # noqa: E402
 from repro_torch.engine.scheduler import AsyncScheduler  # noqa: E402
 from repro_torch.engine import candidates as CD  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.configs import registry as LMR  # noqa: E402
+from repro_torch.data.pipeline import lm_batch  # noqa: E402
 from repro_torch.kernels import containment as CT  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.models import params as LMP  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.kernels import hash_build as HB  # noqa: E402
 from repro_torch.kernels import postings as PM  # noqa: E402
 from repro_torch.kernels import rank_transform as RT  # noqa: E402
@@ -198,6 +231,17 @@ LOAD_FACTOR = 3.0
 SLO_MS = 50.0
 SEQ_CALLS = 64
 RACE_STEPS = 4
+#: the LM phase: the config served at full width, prompts × prompt tokens
+#: and greedy steps (2016 + 32 = tinyllama's published 2048-token
+#: context), and the card-vs-CPU check's layers, tokens and steps
+LM_CONFIG = LMR.get_config("tinyllama-1.1b")
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2016, 32
+LM_CPU = (2, 256, 4)
+#: (a) kernel path vs twin path and (c) card vs CPU: max |logit
+#: difference| over the largest |logit|, the unit of (b)'s 2e-3 / 5e-3
+LM_TOL = 2e-3
+#: kernel vs twin, by output dtype: the reference sweep's tolerances
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 #: H100 SXM data-sheet peaks: HBM bytes/s and
 #: float32 operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -246,13 +290,18 @@ def kernel_us(fn, reps: int = 1):
     return by_name, wall_us
 
 
-def profiled_ms(fn, reps: int, name: str):
+def profiled_ms(fn, reps: int, name: str, tries: int = 3):
     """Mean device time per call of ``fn`` in kernels whose name holds
-    ``name`` (after one warm call); None when the profiler sees none."""
+    ``name`` (after one warm call); None when the profiler sees none in
+    ``tries`` sessions (a session has come back without the kernels'
+    records)."""
     fn()
     torch.cuda.synchronize()
-    us = sum(v for k, v in kernel_us(fn, reps)[0].items() if name in k)
-    return us / 1e3 / reps if us else None
+    for _ in range(tries):
+        us = sum(v for k, v in kernel_us(fn, reps)[0].items() if name in k)
+        if us:
+            return us / 1e3 / reps
+    return None
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -1316,6 +1365,274 @@ def phase_scheduler(index, groups, keys, vals, dev):
         f"{line['race']['mutations']} mutations with no failure, then == direct calls")
 
 
+# ----------------------------------------------------------------------------
+# the LM substrate: flash_attention, and tinyllama-1.1b served on the card
+# ----------------------------------------------------------------------------
+
+def _flash_args(rng, dev, B, Hq, Hkv, Lq, Lk, D, qdt=torch.float32, kvdt=torch.float32):
+    """q [B, Hq, Lq, D] and k, v [B, Hkv, Lk, D] of normal values, drawn on
+    the card from ``rng`` (a torch.Generator)."""
+    draw = lambda shape, dt: torch.randn(shape, generator=rng, device=dev).to(dt)
+    return (draw((B, Hq, Lq, D), qdt), draw((B, Hkv, Lk, D), kvdt),
+            draw((B, Hkv, Lk, D), kvdt))
+
+
+def _flash_cases():
+    """(what, shape, causal, window, q dtype, kv dtype) of every kernel
+    check: the LM path's two launch shapes, the reference sweep, hymba's
+    heads and ragged edges."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, S = LM_BATCH, LM_PROMPT
+    return [
+        ("prefill", (B, 32, 4, S, S, 64), True, 0, f32, f32),
+        ("decode", (B, 32, 4, 1, S + LM_NEW, 64), False, 0, f32, bf16),
+        ("sweep 1", (2, 4, 2, 256, 256, 64), True, 0, f32, f32),
+        ("sweep 2", (1, 8, 8, 128, 128, 32), True, 64, f32, f32),
+        ("sweep 3", (1, 4, 1, 128, 512, 64), True, 0, f32, f32),
+        ("sweep 4", (2, 2, 2, 256, 256, 128), False, 0, f32, f32),
+        ("sweep 5", (1, 4, 2, 256, 256, 64), True, 0, bf16, bf16),
+        ("hymba window", (2, 25, 5, 2048, 2048, 64), True, 1024, f32, f32),
+        ("hymba global", (2, 25, 5, 2048, 2048, 64), True, 0, f32, f32),
+        ("ragged 37", (2, 32, 4, 37, 37, 64), True, 0, f32, f32),
+        ("one query", (3, 32, 4, 1, 77, 64), False, 0, f32, f32),
+        ("Lq > Lk", (2, 32, 4, 40, 24, 64), True, 0, f32, f32),
+    ]
+
+
+def phase_flash(dev):
+    """The attention kernel against its twin at every listed shape, then
+    timed at the LM path's prefill and decode shapes beside the twin, its
+    bound and one PyTorch SDPA call."""
+    rng = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+    for what, shape, causal, window, qdt, kvdt in _flash_cases():
+        q, k, v = _flash_args(rng, dev, *shape, qdt=qdt, kvdt=kvdt)
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype or got.shape != q.shape:
+            fail(f"flash_attention ({what}): {got.dtype} {tuple(got.shape)}")
+        worst = max(worst, check_close(f"flash_attention kernel ({what})", [got.float()],
+                                       [want.float()], FLASH_TOL[qdt]))
+        if what == "Lq > Lk" and not bool((got[:, :, :16] == 0).all()):
+            fail("flash_attention: rows with no key left are not 0")
+        del got, want
+    B, Hq, Hkv, S, _, D = _flash_cases()[0][1]
+    q, k, v = _flash_args(rng, dev, B, Hq, Hkv, S, S, D)
+    kern = lambda: FA.flash_attention(q, k, v, causal=True)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    row = dict(source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:89", max_abs_err=worst,
+               ms=cuda_ms(kern, 10),
+               device_ms=profiled_ms(kern, 5, "flash_fwd"),
+               plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v), 3, warm=1),
+               library_ms=cuda_ms(sdpa, 10),
+               # q, k, v in and o out once; 2·D multiply-adds for each
+               # (query, key) pair the causal mask keeps
+               work=(4 * (2 * q.numel() + 2 * k.numel()),
+                     4.0 * B * Hq * D * S * (S + 1) / 2))
+    check_close("SDPA (the library yardstick)", [sdpa()], [kern()], FLASH_TOL[q.dtype])
+    del q, k, v
+    _, _, _, _, W, _ = _flash_cases()[1][1]
+    q, k, v = _flash_args(rng, dev, B, Hq, Hkv, 1, W, D, kvdt=torch.bfloat16)
+    kern = lambda: FA.flash_attention(q, k, v, causal=False)
+    b, by = bound_ms(2 * k.numel() * 2 + 2 * q.numel() * 4, 4.0 * B * Hq * D * W)
+    row["decode"] = dict(shape=[list(q.shape), list(k.shape), "bfloat16 cache"],
+                         ms=cuda_ms(kern, 50), device_ms=profiled_ms(kern, 20, "flash_fwd"),
+                         plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=False), 10),
+                         bound_ms=b, bound_by=by)
+    say(f"flash_attention: {len(_flash_cases())} shapes (the LM path's prefill and "
+        f"decode, the reference sweep, hymba's 25/5 heads with window 1024 and "
+        f"without, Lq = Lk = 37, Lq = 1, Lq > Lk) — each matches its twin (max "
+        f"|diff| {worst}); prefill {row['ms']:.4f} ms events, {row['device_ms']} ms "
+        f"device, twin {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
+        f"decode {row['decode']['ms']:.4f} ms events, {row['decode']['device_ms']} ms device")
+    return {"flash_attention": row}
+
+
+@contextlib.contextmanager
+def twin_attention():
+    """Route every attention of the model to the kernel's plain twin (on
+    the card: the check's yardstick, never the served path)."""
+    saved = ops.flash_attention
+    ops.flash_attention = ref.flash_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def _greedy(params, cfg, prompt, steps, forced=None):
+    """prefill + ``steps`` decode steps; each step feeds the last step's
+    argmax, or ``forced[:, t]`` when given. Returns the prefill logits,
+    each step's logits, the fed tokens [B, steps] and the cache."""
+    lg, cache = TT.prefill(params, cfg, prompt, max_new_tokens=steps)
+    first, logits, fed = lg[:, -1], [], []
+    cur = lg[:, -1]
+    for t in range(steps):
+        tok = (cur.argmax(-1) if forced is None else forced[:, t])[:, None]
+        fed.append(tok)
+        lg, cache = TT.decode_step(params, cfg, cache, tok)
+        cur = lg[:, -1]
+        logits.append(cur)
+    return first, torch.stack(logits, 1), torch.cat(fed, 1), cache
+
+
+def _rel(got, want) -> float:
+    """max |got − want| over the largest |want|: the LM checks' unit."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def _kernel_split(fn):
+    """One call of ``fn`` under the profiler: card ms in the attention
+    kernel, in matrix products (cuBLAS / CUTLASS kernels) and in the rest,
+    and the wall ms."""
+    by_name, wall_us = kernel_us(fn)
+    split = dict(flash_attention=0.0, matmul=0.0, other=0.0)
+    for name, us in by_name.items():
+        key = ("flash_attention" if "flash_fwd" in name else
+               "matmul" if any(s in name.lower() for s in ("gemm", "xmma", "cutlass"))
+               else "other")
+        split[key] += us / 1e3
+    split["wall"] = wall_us / 1e3
+    return split
+
+
+def phase_lm(dev):
+    """tinyllama-1.1b at full width served on the card: 4 prompts of 2016
+    tokens, prefill and 32 greedy decode steps (the published 2048-token
+    context) through the attention kernel; then checks (a) twin path, (b)
+    prefill/decode against forward_logits in float32 and (c) card against
+    the CPU plain path at 2 layers."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matrix products are on: the reference computes in float32")
+    cfg = LM_CONFIG
+    t0 = time.perf_counter()
+    params = LMP.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    toks = torch.from_numpy(lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=SEED,
+                                     step=0)["tokens"][0]).to(dev)
+    _greedy(params, cfg, toks[:1, :64], 2)          # cuBLAS and kernel warm-up
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lg, cache = TT.prefill(params, cfg, toks, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    first, steps, fed, step_s = lg[:, -1], [], [], []
+    cur = first
+    for _ in range(LM_NEW):
+        tok = cur.argmax(-1)[:, None]
+        t0 = time.perf_counter()
+        lg, cache = TT.decode_step(params, cfg, cache, tok)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        fed.append(tok)
+        cur = lg[:, -1]
+        steps.append(cur)
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps, fed = torch.stack(steps, 1), torch.cat(fed, 1)
+    L = cfg.num_layers
+    if launches["flash_attention"] != L * (1 + LM_NEW):
+        fail(f"the LM path launched flash_attention {launches['flash_attention']} "
+             f"times, expected {L} + {L} × {LM_NEW}")
+    if not (bool(torch.isfinite(first).all()) and bool(torch.isfinite(steps).all())):
+        fail("the LM path's logits are not finite")
+    if cache.pos != LM_PROMPT + LM_NEW or tuple(cache.layers.k.shape) != (
+            L, LM_BATCH, LM_PROMPT + LM_NEW, cfg.num_kv_heads, cfg.head_dim):
+        fail(f"the LM cache is at {cache.pos} with k {tuple(cache.layers.k.shape)}")
+
+    # (a) the same calls with every attention on the twin
+    ops.reset_launches()
+    with twin_attention():
+        t_first, t_steps, _, t_cache = _greedy(params, cfg, toks, LM_NEW, forced=fed)
+    if ops.launches()["flash_attention"]:
+        fail("the twin path launched the kernel")
+    err_a = max(_rel(first, t_first), _rel(steps, t_steps))
+    if not err_a <= LM_TOL:
+        fail(f"(a) kernel path vs twin path: logits differ by {err_a} of the largest")
+    cache_err = check_close("(a) the kernel path's cache vs the twin path's",
+                            [cache.layers.k.float(), cache.layers.v.float()],
+                            [t_cache.layers.k.float(), t_cache.layers.v.float()],
+                            FLASH_TOL[torch.bfloat16])
+    if not torch.equal(cache.layers.kpos, t_cache.layers.kpos):
+        fail("(a) the cache positions differ")
+    del t_cache
+
+    # (b) the reference's consistency check at full width, in float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    seq = torch.cat([toks, fed], 1)
+    full = TT.forward_logits(params, cfg32, {"tokens": seq})
+    f_first, f_steps, _, f_cache = _greedy(params, cfg32, toks, LM_NEW, forced=fed)
+    err_b = (_rel(f_first, full[:, LM_PROMPT - 1]),
+             _rel(f_steps, full[:, LM_PROMPT:]))
+    if f_cache.layers.k.dtype != torch.float32:
+        fail("(b) the float32 config's cache is not float32")
+    if not (err_b[0] <= 2e-3 and err_b[1] <= 5e-3):
+        fail(f"(b) prefill / decode vs forward_logits differ by {err_b} of the "
+             f"largest logit (limits 2e-3, 5e-3)")
+    del full, f_cache
+
+    # (c) the card against the CPU plain path, full width at 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=LM_CPU[0])
+    p2 = LMP.init_params(cfg2, SEED, device=dev)
+    p2_cpu = _tree(p2, lambda t: t.cpu())
+    t2 = torch.from_numpy(lm_batch(cfg2, 1, LM_CPU[1], seed=SEED, step=1)["tokens"][0])
+    c_first, c_steps, c_fed, c_cache = _greedy(p2, cfg2, t2.to(dev), LM_CPU[2])
+    h_first, h_steps, _, h_cache = _greedy(p2_cpu, cfg2, t2, LM_CPU[2], forced=c_fed.cpu())
+    err_c = max(_rel(c_first.cpu(), h_first), _rel(c_steps.cpu(), h_steps))
+    if not err_c <= LM_TOL:
+        fail(f"(c) card vs CPU plain path: logits differ by {err_c} of the largest")
+    check_close("(c) the card's cache vs the CPU's",
+                [c_cache.layers.k.float().cpu(), c_cache.layers.v.float().cpu()],
+                [h_cache.layers.k.float(), h_cache.layers.v.float()],
+                FLASH_TOL[torch.bfloat16])
+    del p2, p2_cpu, c_cache, h_cache
+
+    # where the time goes: one prefill and one decode step under the profiler
+    split_prefill = _kernel_split(lambda: TT.prefill(params, cfg, toks, max_new_tokens=LM_NEW))
+    _, cache = TT.prefill(params, cfg, toks, max_new_tokens=LM_NEW)
+    tok = fed[:, :1]
+    split_decode = _kernel_split(lambda: TT.decode_step(params, cfg, cache, tok))
+    checks_launched = ops.launches()["flash_attention"]
+    line = dict(
+        arch=cfg.name, layers=L, d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+        params=LMP.param_count(cfg), param_bytes=param_bytes, init_s=t_init,
+        batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW, cache_dtype=cfg.dtype,
+        prefill_s=t_prefill, prefill_tokens_s=LM_BATCH * LM_PROMPT / t_prefill,
+        decode_ms_p50=_pct(step_s, 50), decode_ms_p99=_pct(step_s, 99),
+        decode_tokens_s=LM_BATCH / float(np.mean(step_s)),
+        peak_alloc_bytes=peak, resident_before_bytes=resident,
+        flash_launches=launches["flash_attention"],
+        flash_launches_checks=checks_launched,
+        check_a_rel=err_a, check_a_cache_abs=cache_err, check_b_rel=list(err_b),
+        check_c_rel=err_c, prefill_profile_ms=split_prefill,
+        decode_profile_ms=split_decode)
+    say("lm " + json.dumps(line))
+    say(f"lm: {cfg.name} ({L} layers, d {cfg.d_model}) served {LM_BATCH} × "
+        f"{LM_PROMPT} tokens + {LM_NEW} greedy steps with {line['flash_launches']} "
+        f"flash_attention launches; (a) == twin path ({err_a:.3g} of the largest "
+        f"logit), (b) == forward_logits in float32 ({err_b[0]:.3g}, {err_b[1]:.3g}), "
+        f"(c) card == CPU plain path at {LM_CPU[0]} layers ({err_c:.3g})")
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _tree(tree, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1366,6 +1683,8 @@ def main() -> None:
     launches["rank_transform"] = timed("library", phase_library, index, keys, vals,
                                        best, dev)["rank_transform"]
     timed("scheduler", phase_scheduler, index, groups, keys, vals, dev)
+    rows.update(timed("flash_attention", phase_flash, dev))
+    launches["flash_attention"] = timed("lm", phase_lm, dev)["flash_attention"]
     say("phases " + json.dumps(phases))
 
     kernels = []

@@ -6,7 +6,8 @@ for a query, its sketches — not weights. These take the reference's arrays
 as numpy — any object with the named attributes, such as
 ``repro.engine.index.IndexShard``, a ``repro.core.sketch.
 CorrelationSketch`` or a ``repro.engine.lifecycle.LiveIndex`` — so both
-engines can serve the same index.
+engines can serve the same index. The LM substrate's state is its
+weights: `lm_params_from_reference` carries them over.
 """
 from __future__ import annotations
 
@@ -104,3 +105,14 @@ def live_index_from_reference(live, device: D.DeviceLike = None
             sealed=bool(seg.sealed), version=int(seg.version),
             device=idx.device) for seg in live._segs])
     return idx
+
+
+def lm_params_from_reference(tree, device: D.DeviceLike = None) -> dict:
+    """The port's LM parameters for a reference parameter pytree (nested
+    dicts of arrays, such as ``repro.models.params.init_params`` returns,
+    as numpy or anything ``np.asarray`` takes): the same keys, each tensor
+    a bit-for-bit copy in its own dtype."""
+    dev = D.resolve(device)
+    return {k: (lm_params_from_reference(v, dev) if isinstance(v, dict)
+                else torch.from_numpy(np.array(v)).to(dev))
+            for k, v in tree.items()}

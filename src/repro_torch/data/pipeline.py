@@ -6,14 +6,39 @@ column pair), `TableGroup` (a join-key column shared by C numeric columns),
 `group_corpus` / `grow_corpus` (a corpus of wide tables, and one arriving
 in batches, the live index's workload) and `sbn_pair` (the SBN
 bivariate-normal pair). Same seeds give the same
-tables as the JAX package's generators.
+tables as the JAX package's generators. For the LM substrate, `lm_batch`:
+seeded synthetic token batches, equal to the JAX package's for a seed.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+
+def lm_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int, step: int,
+             microbatches: int = 1) -> Dict[str, np.ndarray]:
+    """One deterministic LM batch, microbatch-major ([n_mb, mb, S])."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    toks = rng.integers(0, cfg.vocab_size, size=(batch, seq), dtype=np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((batch, 1), -1, np.int32)], axis=1)
+    out = {"tokens": toks, "labels": labels}
+    if cfg.frontend == "patches" and cfg.num_prefix_embeds > 0:
+        out["prefix_embeds"] = rng.standard_normal(
+            (batch, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers > 0:
+        out = {
+            "frames": rng.standard_normal((batch, seq, cfg.d_model)).astype(np.float32),
+            "target_tokens": toks[:, :448] if seq >= 448 else toks,
+            "target_labels": labels[:, :448] if seq >= 448 else labels,
+        }
+    # always microbatch-major: [n_mb, B/n_mb, ...] (n_mb=1 ⇒ [1, B, ...])
+    out = {k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
+           for k, v in out.items()}
+    return out
 
 
 @dataclasses.dataclass

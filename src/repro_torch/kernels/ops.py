@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import containment as _ct
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hash_build as _hb
 from repro_torch.kernels import postings as _pm
 from repro_torch.kernels import rank_transform as _rt
@@ -28,6 +29,7 @@ LAUNCH_COUNTERS = {
     "postings_merge": _pm.postings_merge,
     "postings_select": _pm.postings_select,
     "hash_build": _hb.hash_build,
+    "flash_attention": _fa.flash_attention,
 }
 
 
@@ -127,6 +129,14 @@ def hash_build(keys):
     int32 bit patterns."""
     impl = _hb.hash_build if _on_cuda(keys) else _ref.hash_build
     return impl(keys)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Causal / sliding-window GQA attention: q [B, Hq, Lq, D], k and v
+    [B, Hkv, Lk, D] (strided views, f32 or bf16 each) → [B, Hq, Lq, D] in
+    q's dtype; positions right-aligned (query i sits at Lk − Lq + i)."""
+    impl = _fa.flash_attention if _on_cuda(q) else _ref.flash_attention
+    return impl(q, k, v, causal=causal, window=window)
 
 
 # moment → statistics helpers shared by the engine

@@ -410,3 +410,34 @@ def hash_build(keys):
     fib = hashing.fibonacci_u32(h)
     return (hashing.to_pattern(h), hashing.to_pattern(fib),
             hashing.unit_interval(fib))
+
+
+# ----------------------------------------------------------------------------
+# flash_attention: causal / sliding-window GQA attention (forward)
+# ----------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B, Hq, Lq, D], k and v [B, Hkv, Lk, D] (any strides; f32 or bf16,
+    each on its own) → [B, Hq, Lq, D] in q's dtype. Query head h reads KV
+    head h // (Hq // Hkv); logits scale 1/√D; positions are right-aligned
+    (query i sits at Lk − Lq + i), so ``causal`` keeps keys at or before
+    it and ``window > 0`` keeps the last ``window`` of those. Logits,
+    softmax and sums in f32; a row with no key left gives 0."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
+    group = Hq // Hkv
+    kq = k.to(torch.float32).repeat_interleave(group, dim=1)
+    vq = v.to(torch.float32).repeat_interleave(group, dim=1)
+    logits = torch.matmul(q.to(torch.float32), kq.transpose(-1, -2)) * (1.0 / np.sqrt(D))
+    qpos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    keep = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window > 0:
+        keep &= kpos > qpos - window
+    p = torch.softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # rows with every key masked
+    return torch.matmul(p, vq).to(q.dtype)

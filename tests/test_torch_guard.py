@@ -17,11 +17,13 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 31, mods
+assert len(mods) >= 39, mods
 for new in ("core.containment", "engine.candidates", "kernels.containment",
             "kernels.postings", "engine.lifecycle", "kernels.hash_build",
             "core.estimators", "core.join", "core.ranking",
-            "engine.scheduler", "quickstart"):
+            "engine.scheduler", "quickstart", "configs", "configs.base",
+            "configs.registry", "models", "models.params", "models.layers",
+            "models.transformer", "kernels.flash_attention"):
     assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]

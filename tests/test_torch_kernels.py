@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import containment as CT
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hash_build as HB
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import postings as PM
@@ -231,6 +232,9 @@ def test_ops_route_cpu_tensors_to_twins(rng):
     ranks = ops.rank_transform(a.reshape(2, 3, 16), mask.reshape(2, 3, 16) > 0)
     torch.testing.assert_close(ranks.reshape(6, 16), ref.rank_transform(a, mask),
                                rtol=0, atol=0)
+    q, k, v = (torch.from_numpy(x) for x in _flash_inputs(rng, 1, 4, 2, 5, 9, 32))
+    torch.testing.assert_close(ops.flash_attention(q, k, v, window=3),
+                               ref.flash_attention(q, k, v, window=3), rtol=0, atol=0)
     assert ops.launches() == dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
 
 
@@ -251,6 +255,73 @@ def test_cuda_wrappers_refuse_cpu_tensors(rng):
 def test_hash_build_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         HB.hash_build(torch.zeros(8, dtype=torch.int32))
+
+
+def test_flash_attention_wrapper_refuses_cpu_tensors(rng):
+    q, k, v = (torch.from_numpy(x) for x in _flash_inputs(rng, 1, 4, 2, 8, 8, 64))
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k, v)
+
+
+def _flash_inputs(rng, B, Hq, Hkv, Lq, Lk, D):
+    q = rng.normal(size=(B, Hq, Lq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, Lk, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, Lk, D)).astype(np.float32)
+    return q, k, v
+
+
+#: the JAX package's sweep (tests/test_kernels.py), with its tolerances:
+#: 2e-3 in float32, 2e-2 in bfloat16
+FLASH_SWEEP = [
+    (2, 4, 2, 256, 256, 64, True, 0, "float32"),
+    (1, 8, 8, 128, 128, 32, True, 64, "float32"),
+    (1, 4, 1, 128, 512, 64, True, 0, "float32"),     # GQA + decode-ish
+    (2, 2, 2, 256, 256, 128, False, 0, "float32"),
+    (1, 4, 2, 256, 256, 64, True, 0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D,causal,window,dtype", FLASH_SWEEP)
+def test_flash_attention_twin_matches_reference_and_pallas(
+        rng, jx, B, Hq, Hkv, Lq, Lk, D, causal, window, dtype):
+    arrays = _flash_inputs(rng, B, Hq, Hkv, Lq, Lk, D)
+    jargs = [jx.jnp.asarray(x).astype(dtype) for x in arrays]
+    got = ref.flash_attention(*(torch.from_numpy(x).to(getattr(torch, dtype))
+                                for x in arrays), causal=causal, window=window)
+    assert got.dtype == getattr(torch, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-3
+    f32 = lambda x: np.asarray(x, np.float32)
+    _close(got.float(), f32(jx.ref.flash_attention(*jargs, causal=causal, window=window)), tol)
+    _close(got.float(), f32(jx.ops.flash_attention(*jargs, causal=causal, window=window,
+                                                   cfg=jx.interp)), tol)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D,causal,window", [
+    (2, 4, 2, 37, 37, 32, True, 0),       # ragged tails
+    (1, 6, 2, 1, 77, 64, False, 0),       # one decode query over a ragged cache
+    (2, 4, 4, 40, 24, 32, True, 0),       # Lq > Lk: the first 16 rows see no key
+    (1, 4, 2, 37, 37, 32, True, 5),       # a window inside the tile
+    (1, 6, 3, 5, 70, 64, True, 16),       # window + right-aligned queries
+    (1, 2, 1, 9, 30, 32, False, 4),       # window without the causal mask
+])
+def test_flash_attention_twin_ragged_and_masked(rng, jx, B, Hq, Hkv, Lq, Lk, D,
+                                                causal, window):
+    arrays = _flash_inputs(rng, B, Hq, Hkv, Lq, Lk, D)
+    got = ref.flash_attention(*(torch.from_numpy(x) for x in arrays),
+                              causal=causal, window=window)
+    want = jx.ref.flash_attention(*(jx.jnp.asarray(x) for x in arrays),
+                                  causal=causal, window=window)
+    _close(got, want, 2e-3)
+    assert torch.isfinite(got).all()
+    if causal and Lq > Lk:
+        assert (got[:, :, :Lq - Lk] == 0).all()
+    # a bf16 cache: the same numbers as an upcast copy
+    kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays[1:])
+    q = torch.from_numpy(arrays[0])
+    torch.testing.assert_close(
+        ref.flash_attention(q, kb, vb, causal=causal, window=window),
+        ref.flash_attention(q, kb.float(), vb.float(), causal=causal, window=window),
+        rtol=0, atol=0)
 
 
 # ----------------------------------------------------------------------------
@@ -427,6 +498,40 @@ def test_cuda_hash_build_matches_twin(rng, cuda, shape, offset):
     assert HB.hash_build.launches == before + 1
     for g, w in zip(got, ref.hash_build(t)):
         assert g.shape == t.shape and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D,causal,window,qdt,kvdt", [
+    (B, Hq, Hkv, Lq, Lk, D, c, w, dt, dt) for B, Hq, Hkv, Lq, Lk, D, c, w, dt in FLASH_SWEEP
+] + [
+    (4, 32, 4, 1, 2048, 64, False, 0, "float32", "bfloat16"),   # decode on a bf16 cache
+    (2, 32, 4, 300, 300, 64, True, 0, "float32", "float32"),    # tinyllama's heads
+    (1, 25, 5, 520, 520, 64, True, 128, "float32", "float32"),  # hymba's heads, a window
+    (2, 4, 2, 37, 37, 32, True, 0, "float32", "float32"),
+    (1, 6, 2, 1, 77, 64, False, 0, "float32", "float32"),
+    (2, 4, 4, 40, 24, 32, True, 0, "float32", "float32"),
+    (1, 6, 3, 5, 70, 96, True, 16, "float32", "float32"),
+    (1, 4, 2, 130, 200, 128, True, 0, "bfloat16", "float32"),
+    (1, 4, 2, 7, 0, 64, True, 0, "float32", "float32"),         # no keys at all
+])
+def test_cuda_flash_attention_matches_twin(rng, cuda, B, Hq, Hkv, Lq, Lk, D,
+                                           causal, window, qdt, kvdt):
+    """Contiguous [B, H, L, D] tensors and strided views of [B, L, H, D]
+    ones: 2e-3 in float32, 2e-2 with a bf16 output."""
+    q, k, v = _flash_inputs(rng, B, Hq, Hkv, Lq, Lk, D)
+    t = lambda x, dt: torch.from_numpy(x).to(cuda, getattr(torch, dt))
+    tol = 2e-2 if qdt == "bfloat16" else 2e-3
+    for view in (False, True):
+        args = [t(q, qdt), t(k, kvdt), t(v, kvdt)]
+        if view:
+            args = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in args]
+        before = FA.flash_attention.launches
+        got = FA.flash_attention(*args, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert FA.flash_attention.launches == before + (got.numel() > 0)
+        assert got.dtype == args[0].dtype and got.shape == args[0].shape
+        want = ref.flash_attention(*args, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
