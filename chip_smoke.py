@@ -32,7 +32,15 @@ failure (exit code 1, no result line):
                 5e-5 (Qn). The chunk holds all columns of 4 tables and each
                 query is a column of one of them cut to fewer rows, so a
                 quarter of the join rows join, with m from ~70 to 256. Each
-                kernel is timed beside its twin and its bound.
+                kernel is timed beside its twin and its bound. Qn is also
+                checked and timed (CUDA events and ``torch.profiler``) at
+                (b) a 128-candidate chunk that no row of the bucket joins
+                and (c) the library's chunk (planted query 0 against 16384
+                candidates), then at wider sketches (n = 512 and 2048;
+                4096 rows of which 1024 join, and 16384 of which 32 do),
+                and checked at edge rows (m = 0–3, all-tied values, m = n
+                with and without ties, unjoined rows between joined ones;
+                n = 7, 256, 257, 1000 and 2048).
   5. slice    — with every launch count at 0, `Server.warmup` and then
                 `Server.query_columns` on 64 planted queries (a group's
                 latent column, sharing its keys) for every scorer ×
@@ -47,9 +55,11 @@ failure (exit code 1, no result line):
                 bucket's real postings windows at the corpus's W; the
                 (id, count) sets of every row equal) and postings_select
                 (the merge output at the base rung, which overflows, and at
-                the covering rung; surv, valid and n_surv bit-equal), each
-                against its twin, timed beside the twin, its bound and —
-                for postings_select — ``torch.unique``.
+                the covering rung, and at C = 131071, 1000 and 1 with an
+                eligible id at C − 1; surv, valid and n_surv bit-equal),
+                each against its twin, timed beside the twin, its bound and
+                — for postings_select, also by ``torch.profiler`` —
+                ``torch.unique``.
   7. two-stage — with every launch count at 0, two servers on the same
                 index, ``candidates="scan"`` and ``"auto"`` (= inverted at
                 this C), warm every prune mode and serve the 64 planted
@@ -121,9 +131,10 @@ failure (exit code 1, no result line):
                 2048 with window 1024 and without, and ragged edges (Lq = Lk
                 = 37, Lq = 1, Lq > Lk causal, whose first rows see no key:
                 0); timed at both path shapes beside its twin and its bound,
-                by CUDA events and ``torch.profiler``, and at the prefill
-                shape beside one ``scaled_dot_product_attention`` call (a
-                yardstick, never on the path).
+                by CUDA events and ``torch.profiler``, and beside one
+                ``scaled_dot_product_attention`` call (a yardstick, never on
+                the path; at the decode shape on the cache cast to float32
+                before the timed calls, as SDPA takes one dtype).
   12. lm      — tinyllama-1.1b at full width (22 layers, f32 weights from
                 SEED, bf16 cache as its config says) serves 4 prompts of
                 2016 tokens from ``lm_batch``: ``prefill`` and 32 greedy
@@ -138,7 +149,8 @@ failure (exit code 1, no result line):
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
-seconds, dispatch p50/p99, qps, stage counters, survivor rungs), a
+seconds, dispatch p50/p99 — for ``off`` also by estimator —, qps, stage
+counters, survivor rungs), a
 ``lifecycle`` JSON line (append, delete, compact, save, load and refresh
 seconds, appended columns/s, segment counts, and 32-query call p50/p99
 with 8 segments and with 1), a ``library`` JSON line (ms per query per
@@ -219,6 +231,18 @@ LAT_CALLS = (8, 4)
 #: rank_transform's edge widths and rows per width
 EDGE_N = (1, 7, 257, 2049, 4100)
 EDGE_ROWS = 48
+#: qn_correlation's edge widths (a small one, the path's, one past a
+#: warp's 256 values, one for four warps a scale, the widest the kernel
+#: takes) and rows
+QN_EDGE_N = (7, 256, 257, 1000, RT.MAX_N)
+QN_EDGE_ROWS = 24
+#: Qn also at wider sketches, the kernel's other paths: (n, rows, joined
+#: rows), the kernel phase's bucket (many rows join) and the library's
+#: chunk (few do)
+QN_WIDE = ((512, 4096, 1024), (512, 16384, 32), (2048, 4096, 1024), (2048, 16384, 32))
+#: postings_select's edge cases (C, M): C not a multiple of 32, with an
+#: eligible id at C − 1, and C = 1
+SELECT_EDGES = ((131071, 1024), (1000, 64), (1, 4))
 #: the library's card-vs-CPU check: queries for the 12 combinations, and
 #: queries and columns for s3
 LIB_CPU_QUERIES = 4
@@ -274,7 +298,8 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
 
 def kernel_us(fn, reps: int = 1):
     """``reps`` calls of ``fn`` under ``torch.profiler`` (CUPTI): device
-    µs per kernel name, and the wall µs of the calls."""
+    µs per kernel name, the wall µs of the calls, and the launches recorded
+    per kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -283,24 +308,26 @@ def kernel_us(fn, reps: int = 1):
             fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    return by_name, wall_us
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return by_name, wall_us, counts
 
 
 def profiled_ms(fn, reps: int, name: str, tries: int = 3):
     """Mean device time per call of ``fn`` in kernels whose name holds
-    ``name`` (after one warm call); None when the profiler sees none in
-    ``tries`` sessions (a session has come back without the kernels'
-    records)."""
+    ``name`` (after one warm call); None unless one of ``tries`` sessions
+    records them for every call: a session has come back with none or
+    only some of the kernels' records, which would read low."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        us = sum(v for k, v in kernel_us(fn, reps)[0].items() if name in k)
-        if us:
-            return us / 1e3 / reps
+        by_name, _, counts = kernel_us(fn, reps)
+        n = sum(c for k, c in counts.items() if name in k)
+        if n and n % reps == 0:
+            return sum(v for k, v in by_name.items() if name in k) / 1e3 / reps
     return None
 
 
@@ -458,10 +485,11 @@ def kernel_inputs(groups, chunk: int):
     return keys, vals, ids
 
 
-def phase_kernels(index, bucket, dev):
-    """Each kernel at its main-path shapes against its twin; timings."""
-    keys, vals, ids = bucket
-    sk = SV.build_query_sketches(keys, vals, n=N, device=dev)
+def phase_kernels(index, bucket, keys, vals, dev):
+    """Each kernel at its main-path shapes against its twin; timings.
+    ``keys``/``vals``: the planted queries (the first is the library's)."""
+    bkeys, bvals, ids = bucket
+    sk = SV.build_query_sketches(bkeys, bvals, n=N, device=dev)
     q_kh, q_val, q_mask, _, _ = TI.query_arrays(sk)
     sh = index.shard
     sel = torch.as_tensor(ids, device=dev)
@@ -506,17 +534,52 @@ def phase_kernels(index, bucket, dev):
         # the mask of every row; a and b of the rows that joined
         work=(R * nq * 4 + joined * nq * 8 + R * 6 * 4, float(4 * (m * m).sum())))
 
-    g, wt = RT.qn_correlation(qv, a, w), ref.qn_correlation(qv, a, w)
-    torch.cuda.synchronize()
-    err = check_close("qn_correlation kernel", [g], [wt], TOL)
+    # Qn at (a) this bucket, (b) a chunk of the bucket's scan that no row
+    # joins (the next four tables) and (c) the library's chunk (planted
+    # query 0 against the first RK.CHUNK columns), then at edge rows
+    c_b = tuple(t[sel + COLS].contiguous() for t in (sh.key_hash, sh.values, sh.mask))
+    _, al_b, hit_b = SJ.sketch_join_moments_batched(q_kh, q_val, q_mask, *c_b)
+    q0 = SV.build_query_sketches(keys[:1], vals[:1], n=N, device=dev).map(lambda t: t[0])
+    sj = JN.sketch_join(q0, index_sketches(index, RK.CHUNK))
+    qn_in = {"a": (qv, a, w),
+             "b": ((q_val[:, None, :] * hit_b).reshape(-1, nq), al_b.reshape(-1, nq),
+                   hit_b.reshape(-1, nq)),
+             "c": (sj.a, sj.b, sj.mask.to(torch.float32))}
+    rng = np.random.default_rng(SEED)
+    for nw_, rw_, jw_ in QN_WIDE:
+        qn_in[f"n{nw_}_{rw_}x{jw_}"] = _qn_wide_rows(rng, nw_, rw_, jw_, dev)
+    shapes, errs = {}, []
+    for key, (x, y, wm) in qn_in.items():
+        g, wt = RT.qn_correlation(x, y, wm), ref.qn_correlation(x, y, wm)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"qn_correlation kernel at shape ({key})", [g], [wt], TOL))
+        mk = (wm > 0).sum(-1).double()
+        mk2 = mk[mk >= 2]
+        lk2 = torch.log2(mk2)
+        shapes[key] = dict(
+            rows=x.shape[0], n=x.shape[1], joined_rows=int((mk >= 2).sum()), max_abs_err=errs[-1],
+            ms=cuda_ms(lambda: RT.qn_correlation(x, y, wm), 20),
+            device_ms=profiled_ms(lambda: RT.qn_correlation(x, y, wm), 10, "qn_kernel"),
+            plain_ms=cuda_ms(lambda: ref.qn_correlation(x, y, wm), 3),
+            work=(x.shape[0] * x.shape[1] * 4 + int((mk >= 2).sum()) * x.shape[1] * 8
+                  + x.shape[0] * 4, float(4 * (mk2 * lk2 * lk2 / 2 + 31 * mk2 * lk2).sum())))
+        del g, wt, x, y, wm
+    del qn_in
+    for ne in QN_EDGE_N:
+        x, y, wm = _qn_edge_rows(rng, ne, dev)
+        errs.append(check_close(f"qn_correlation kernel at edge rows, n={ne}",
+                                [RT.qn_correlation(x, y, wm)], [ref.qn_correlation(x, y, wm)],
+                                TOL))
+    for sh_row in shapes.values():
+        sh_row["bound_ms"], sh_row["bound_by"] = bound_ms(*sh_row.pop("work"))
     ml = m[m >= 2]
     lg = torch.log2(ml)
     rows["qn_correlation"] = dict(
         source="src/repro_torch/csrc/rank_transform.cu",
         replaces="src/repro/kernels/rank_transform.py:302",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: RT.qn_correlation(qv, a, w), 20),
-        plain_ms=cuda_ms(lambda: ref.qn_correlation(qv, a, w), 3),
+        max_abs_err=max(errs),
+        ms=shapes["a"]["ms"], device_ms=shapes["a"]["device_ms"],
+        plain_ms=shapes["a"]["plain_ms"], shapes=shapes,
         work=(R * nq * 4 + joined2 * nq * 8 + R * 4,
               float(4 * (ml * lg * lg / 2 + 31 * ml * lg).sum())))
     say(f"kernels: B={B} nq={nq} chunk={C} n={n} rows={R} joined_rows={joined} "
@@ -551,6 +614,43 @@ def _edge_rows(rng, n, dev):
     frac[4] = 0.0
     t = lambda a: torch.from_numpy(a).to(dev)
     return t(x), t(mask), t(frac)
+
+
+def _qn_wide_rows(rng, n, R, joined, dev):
+    """Qn rows wider than the path's sketches: R rows of width n of which
+    ``joined`` (a multiple of 32) join, in runs of 32 spread evenly, as a
+    table's columns join together; m uniform in [n/4, n]."""
+    a = rng.normal(size=(R, n)).astype(np.float32)
+    b = (0.6 * a + rng.normal(size=(R, n))).astype(np.float32)
+    mask = np.zeros((R, n), np.float32)
+    step = R // (joined // 32)
+    for r in (s + i for s in range(0, joined // 32 * step, step) for i in range(32)):
+        mask[r, rng.choice(n, rng.integers(n // 4, n + 1), replace=False)] = 1.0
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return t(a), t(b), t(mask)
+
+
+def _qn_edge_rows(rng, n, dev):
+    """QN_EDGE_ROWS rows of width n ≥ 4: m = 0, 1, 2 and 3; valid values
+    that all tie in a (scale 0, so r = 0) and in b; m = n without ties and
+    with them; then rows of m = 0 or 1 between joined rows, so that one
+    block of four rows holds both."""
+    R = QN_EDGE_ROWS
+    a = (np.round(rng.normal(size=(R, n)) * 2) / 2).astype(np.float32)
+    b = (0.6 * a + rng.normal(size=(R, n))).astype(np.float32)
+    mask = (rng.random((R, n)) < 0.75).astype(np.float32)
+    for r in range(4):
+        mask[r] = 0.0
+        mask[r, rng.choice(n, r, replace=False)] = 1.0
+    a[4] = 1.5
+    b[5] = -0.25
+    a[6] = rng.permutation(n) * 0.37 + 0.1
+    b[6] = rng.permutation(n) * -0.61 + 2.0
+    mask[6:8] = 1.0
+    mask[8::2] = 0.0
+    mask[8::4, rng.integers(n)] = 1.0
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return t(a), t(b), t(mask)
 
 
 def phase_rank_transform(index, keys, vals, dev):
@@ -632,7 +732,7 @@ def device_busy(fn):
     """One call of ``fn`` under torch.profiler: wall ms, the share of it
     the card spent in kernels, and the kernels that took the most. The
     profiler slows the host, so the share is a lower bound."""
-    by_name, wall_us = kernel_us(fn)
+    by_name, wall_us, _ = kernel_us(fn)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return dict(wall_ms=wall_us / 1e3,
                 busy_share=sum(by_name.values()) / wall_us if by_name else None,
@@ -765,25 +865,43 @@ def phase_stage1_kernels(index, keys, vals, dev):
 
     floor = float(PL.request_operands(PL.Request())[3])
     n_surv = int(ref.postings_select(mc, mn, floor, 1)[2])
-    rung = PL.prune_rung(n_surv, PL.ShapePolicy().prune_base, C)
-    for M in (PL.ShapePolicy().prune_base, rung):
+    base = PL.ShapePolicy().prune_base
+    rung = PL.prune_rung(n_surv, base, C)
+    for M in (base, rung):
         g = PM.postings_select(mc, mn, floor, M, C)
         w = ref.postings_select(mc, mn, floor, M)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(g, w)):
             fail(f"postings_select kernel differs from its twin at rung {M}")
+    # edge cases: the same rows with ids folded into [0, Ce), one of them
+    # Ce − 1; below floor counts stay ineligible
+    for Ce, Me in SELECT_EDGES:
+        ce = torch.where(mc >= 0, mc % Ce, -1)
+        ce[0, 0], mn_e = Ce - 1, mn.clone()
+        mn_e[0, 0] = floor
+        g = PM.postings_select(ce, mn_e, floor, Me, Ce)
+        w = ref.postings_select(ce, mn_e, floor, Me)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(g, w)):
+            fail(f"postings_select kernel differs from its twin at C={Ce}, M={Me}")
     elig = mc[(mc >= 0) & (mn >= floor)]
     rows["postings_select"] = dict(
         source="src/repro_torch/csrc/postings.cu",
         replaces="src/repro/kernels/postings.py:129",
         max_abs_err=0.0,
         ms=cuda_ms(lambda: PM.postings_select(mc, mn, floor, rung, C), 50),
+        # the select's own kernels (not the memset of its scratch)
+        device_ms=profiled_ms(lambda: PM.postings_select(mc, mn, floor, rung, C), 20,
+                              "postings"),
+        base_rung_ms=cuda_ms(lambda: PM.postings_select(mc, mn, floor, base, C), 50),
+        base_rung_device_ms=profiled_ms(lambda: PM.postings_select(mc, mn, floor, base, C),
+                                        20, "postings"),
         plain_ms=cuda_ms(lambda: ref.postings_select(mc, mn, floor, rung), 10),
         library_ms=cuda_ms(lambda: torch.unique(elig, sorted=True), 50),
         work=(B * L * 8 + rung * 5 + 4, float(B * L)))
     say(f"stage-1 kernels: B={B} nq={nq} C={C} n={n} E={src.E} W={src.W} "
-        f"L={L} n_surv={n_surv} rungs=({PL.ShapePolicy().prune_base}, {rung})"
-        f" — each matches its twin")
+        f"L={L} n_surv={n_surv} rungs=({base}, {rung}); postings_select also at "
+        f"(C, M) = {list(SELECT_EDGES)} — each matches its twin")
     return rows
 
 
@@ -826,6 +944,7 @@ def phase_two_stage(index, keys, vals, dev):
              "topm(inverted)": (srv["auto"], "topm")}
     per_req = {m: {} for m in modes}
     lat = {m: [] for m in modes}
+    off_by_est = {}  # the scan's dispatches of each estimator's requests
     results = {}
     for req in requests:
         name = f"{req.estimator}/{req.scorer}"
@@ -836,6 +955,8 @@ def phase_two_stage(index, keys, vals, dev):
             results[(m, name)] = out
             per_req[m][name] = dt
             lat[m] += ls
+            if m == "off":
+                off_by_est.setdefault(req.estimator, []).extend(ls)
     hits = {c: s.stage1_hits(sk) for c, s in srv.items()}
     joins = {c: s.search_joinable(keys, k=COLS, metric="containment")
              for c, s in srv.items()}
@@ -883,6 +1004,8 @@ def phase_two_stage(index, keys, vals, dev):
         request_s=per_req,
         dispatch_p50_ms={m: pct(v, 50) for m, v in lat.items()},
         dispatch_p99_ms={m: pct(v, 99) for m, v in lat.items()},
+        off_dispatch_ms_by_estimator={e: dict(p50=pct(v, 50), p99=pct(v, 99), dispatches=len(v))
+                                      for e, v in off_by_est.items()},
         qps={m: N_QUERIES * len(v) / sum(v.values()) for m, v in per_req.items()},
         stages=stages,
         # the scan server's "scan" stage also counts its off dispatches
@@ -1438,16 +1561,25 @@ def phase_flash(dev):
     q, k, v = _flash_args(rng, dev, B, Hq, Hkv, 1, W, D, kvdt=torch.bfloat16)
     kern = lambda: FA.flash_attention(q, k, v, causal=False)
     b, by = bound_ms(2 * k.numel() * 2 + 2 * q.numel() * 4, 4.0 * B * Hq * D * W)
+    # SDPA takes one dtype: the cache cast to float32 before the timed calls
+    k32, v32 = k.float(), v.float()
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k32, v32, enable_gqa=True)
+    check_close("SDPA at the decode shape", [sdpa()], [kern()], FLASH_TOL[q.dtype])
     row["decode"] = dict(shape=[list(q.shape), list(k.shape), "bfloat16 cache"],
                          ms=cuda_ms(kern, 50), device_ms=profiled_ms(kern, 20, "flash_fwd"),
                          plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=False), 10),
+                         library_ms=cuda_ms(sdpa, 50),
+                         library="scaled_dot_product_attention(q, k32, v32, enable_gqa=True) "
+                                 "on the cache cast to float32 outside the timed window",
                          bound_ms=b, bound_by=by)
     say(f"flash_attention: {len(_flash_cases())} shapes (the LM path's prefill and "
         f"decode, the reference sweep, hymba's 25/5 heads with window 1024 and "
         f"without, Lq = Lk = 37, Lq = 1, Lq > Lk) — each matches its twin (max "
         f"|diff| {worst}); prefill {row['ms']:.4f} ms events, {row['device_ms']} ms "
         f"device, twin {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
-        f"decode {row['decode']['ms']:.4f} ms events, {row['decode']['device_ms']} ms device")
+        f"decode {row['decode']['ms']:.4f} ms events, {row['decode']['device_ms']} ms device, "
+        f"SDPA on the f32-cast cache {row['decode']['library_ms']:.4f} ms")
     return {"flash_attention": row}
 
 
@@ -1488,7 +1620,7 @@ def _kernel_split(fn):
     """One call of ``fn`` under the profiler: card ms in the attention
     kernel, in matrix products (cuBLAS / CUTLASS kernels) and in the rest,
     and the wall ms."""
-    by_name, wall_us = kernel_us(fn)
+    by_name, wall_us, _ = kernel_us(fn)
     split = dict(flash_attention=0.0, matmul=0.0, other=0.0)
     for name, us in by_name.items():
         key = ("flash_attention" if "flash_fwd" in name else
@@ -1651,9 +1783,12 @@ def main() -> None:
     ops.load_kernels(dev)
     say(f"build: {time.perf_counter() - t0:.2f} s")
     for name in build.SOURCES:
+        entry = "?"
         for ln in build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
-                say(f"  {name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            elif "registers" in ln or "spill" in ln:
+                say(f"  {name} {entry}: {ln.strip()}")
 
     t0 = time.perf_counter()
     groups = corpus()
@@ -1671,7 +1806,7 @@ def main() -> None:
     index = timed("index", phase_index, groups, dev)
     rows = timed("hash_build", phase_hash_build, groups, dev)
     bucket = kernel_inputs(groups, SV.Server(index, buckets=(BUCKET,)).chunk_for(BUCKET))
-    rows.update(timed("kernels", phase_kernels, index, bucket, dev))
+    rows.update(timed("kernels", phase_kernels, index, bucket, keys, vals, dev))
     rows.update(timed("rank_transform", phase_rank_transform, index, keys, vals, dev))
     launches = timed("slice", phase_slice, index, keys, vals, best, dev)
     rows.update(timed("stage1_kernels", phase_stage1_kernels, index, keys, vals, dev))

@@ -19,16 +19,26 @@
 // latency-bound (a few MB at most). Both Pallas kernels build O(L²) or
 // O(N²) pairwise equality tiles in VMEM, which is the wrong shape here.
 //
-// Design. Merge: one block per row sorts the row (a bitonic network; −1
+// Merge design: one block per row sorts the row (a bitonic network; −1
 // becomes INT32_MAX and sorts last) in dynamic shared memory when it fits
 // (the wrapper opts in above 48 KB), else in a global-memory scratch row the
 // wrapper allocates — so every L the window ladder can give launches. Each
 // thread then owns a contiguous span of the sorted row, counts the run
 // heads in it, and a block prefix sum gives every head its compacted slot;
-// a head's count is its run length. Select: ids are column ids in [0, C),
-// so one pass marks eligible ids in a C-byte flag array and one block
-// compacts the flags in order with a prefix sum — O(N + C), no sort. The
-// C flags cost microseconds on this card; dropping them is later work.
+// a head's count is its run length.
+//
+// Select design: ids are column ids in [0, C), so no sort is needed. One
+// kernel marks each eligible id in a bitmap of ⌈C/32⌉ words (atomicOr;
+// 16 KB at C = 131072) with coalesced grid-stride reads of the N slots,
+// 4 a thread in flight, reading a slot's count only when its id is live.
+// The last block to finish (a done-counter after __threadfence) compacts
+// the bitmap: tiles of 4096 words, 4 consecutive words a thread read as
+// one 16-byte load, __popc counts, one block exclusive scan a tile, and
+// each thread writes its set bits (__ffs) ascending from its offset, cut
+// at M. What bounds it: the N slots' 8 bytes each (bytes), then one tile
+// scan a 131072 columns on a single SM (latency). The bitmap and counter
+// are zeroed by one memset before the launch.
+#include <algorithm>
 #include <climits>
 
 #include "common.cuh"
@@ -37,6 +47,10 @@ namespace {
 
 constexpr int kMergeThreads = 1024;
 constexpr int kSelectThreads = 1024;
+constexpr int kSelectPer = 4;  // slots a thread has in flight in the flag pass
+// the flag pass's largest grid: two blocks an SM of an H100 (132 SMs), a
+// constant so a launch makes no device query on the host
+constexpr long long kSelectMaxGrid = 264;
 
 __device__ __forceinline__ bool run_head(const int32_t* s, int i) {
   return s[i] != INT_MAX && (i == 0 || s[i - 1] != s[i]);
@@ -80,35 +94,62 @@ postings_merge_kernel(const int32_t* __restrict__ cand, int L, int np2, int32_t*
   }
 }
 
-__global__ void postings_flag_kernel(const int32_t* __restrict__ cols,
-                                     const float* __restrict__ counts, long long N, float min_count,
-                                     int C, unsigned char* __restrict__ flags) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < N;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int32_t c = cols[i];
-    if (c >= 0 && c < C && counts[i] >= min_count) flags[c] = 1;
-  }
-}
-
 __global__ void __launch_bounds__(kSelectThreads)
-postings_compact_kernel(const unsigned char* __restrict__ flags, int C, int M,
-                        int32_t* __restrict__ surv, unsigned char* __restrict__ valid,
-                        int32_t* __restrict__ n_surv) {
-  __shared__ int scan_scratch[repro::kMaxWarps];
-  const int per = (C + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, C);
-  const int hi = min(lo + per, C);
-  int mine = 0;
-  for (int c = lo; c < hi; ++c) mine += flags[c];
-  int total = 0;
-  int pos = repro::block_exclusive_scan(mine, scan_scratch, &total);
-  for (int c = lo; c < hi && pos < M; ++c) {
-    if (flags[c]) surv[pos++] = c;
+postings_select_kernel(const int32_t* __restrict__ cols, const float* __restrict__ counts,
+                       long long N, float min_count, int C, int M, uint32_t* bitmap, int W,
+                       int32_t* __restrict__ surv, unsigned char* __restrict__ valid,
+                       int32_t* __restrict__ n_surv) {
+  // flag pass: slots i0 + k·stride, k < kSelectPer, loaded before any atomic
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i0 < N;
+       i0 += stride * kSelectPer) {
+    int32_t c[kSelectPer];
+#pragma unroll
+    for (int k = 0; k < kSelectPer; ++k) {
+      const long long i = i0 + k * stride;
+      c[k] = i < N ? cols[i] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kSelectPer; ++k) {
+      if (c[k] >= 0 && c[k] < C && counts[i0 + k * stride] >= min_count)
+        atomicOr(&bitmap[c[k] >> 5], 1u << (c[k] & 31));
+    }
   }
-  const int kept = min(total, M);
+  __threadfence();
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&bitmap[W], 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // compaction by the last block, a tile of 4 words a thread at a time
+  __shared__ int scan_scratch[repro::kMaxWarps];
+  int done = 0;  // eligible ids in the tiles before this one
+  for (int t0 = 0; t0 < W; t0 += 4 * kSelectThreads) {
+    const int w0 = t0 + 4 * static_cast<int>(threadIdx.x);
+    uint32_t v[4];
+    if (w0 + 3 < W) {
+      const uint4 q = __ldcg(reinterpret_cast<const uint4*>(bitmap + w0));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = w0 + k < W ? __ldcg(bitmap + w0 + k) : 0u;
+    }
+    const int mine = __popc(v[0]) + __popc(v[1]) + __popc(v[2]) + __popc(v[3]);
+    int total = 0;
+    int pos = done + repro::block_exclusive_scan(mine, scan_scratch, &total);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      for (uint32_t word = v[k]; word != 0u && pos < M; word &= word - 1u)
+        surv[pos++] = (w0 + k) * 32 + __ffs(word) - 1;
+    }
+    done += total;
+  }
+  const int kept = min(done, M);
   for (int i = kept + threadIdx.x; i < M; i += blockDim.x) surv[i] = 0;
   for (int i = threadIdx.x; i < M; i += blockDim.x) valid[i] = i < kept;
-  if (threadIdx.x == 0) *n_surv = total;
+  if (threadIdx.x == 0) *n_surv = done;
 }
 
 }  // namespace
@@ -131,26 +172,22 @@ extern "C" int postings_merge_launch(const void* cand, int B, int L, int np2, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// Selects from N = B·L merged slots with ids in [0, C); `flags` is C bytes
-// of device scratch. Writes surv i32[M], valid u8[M] and n_surv i32[1].
-// Returns cudaGetLastError() after the launches.
+// Selects from N = B·L merged slots with ids in [0, C); `scratch` is
+// ⌈C/32⌉ + 1 words of device memory (the bitmap, then the done-counter).
+// Writes surv i32[M], valid u8[M] and n_surv i32[1]. Returns
+// cudaGetLastError() after the launch.
 extern "C" int postings_select_launch(const void* cols, const void* counts, long long N,
-                                      float min_count, int C, int M, void* flags, void* surv,
+                                      float min_count, int C, int M, void* scratch, void* surv,
                                       void* valid, void* n_surv, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(flags, 0, static_cast<size_t>(C), st);
+  const int W = (C + 31) / 32;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(uint32_t) * (static_cast<size_t>(W) + 1), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (N > 0) {
-    const long long want = (N + 255) / 256;
-    const int grid = static_cast<int>(want < 4096 ? want : 4096);
-    postings_flag_kernel<<<grid, 256, 0, st>>>(static_cast<const int32_t*>(cols),
-                                               static_cast<const float*>(counts), N, min_count, C,
-                                               static_cast<unsigned char*>(flags));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  postings_compact_kernel<<<1, kSelectThreads, 0, st>>>(
-      static_cast<const unsigned char*>(flags), C, M, static_cast<int32_t*>(surv),
+  const long long want = (N + kSelectThreads * kSelectPer - 1) / (kSelectThreads * kSelectPer);
+  const int grid = static_cast<int>(std::max(1LL, std::min(want, kSelectMaxGrid)));
+  postings_select_kernel<<<grid, kSelectThreads, 0, st>>>(
+      static_cast<const int32_t*>(cols), static_cast<const float*>(counts), N, min_count, C, M,
+      static_cast<uint32_t*>(scratch), W, static_cast<int32_t*>(surv),
       static_cast<unsigned char*>(valid), static_cast<int32_t*>(n_surv));
   return static_cast<int>(cudaGetLastError());
 }

@@ -80,14 +80,15 @@ def postings_select(cols, counts, floor, M: int, C: int):
     M, C = int(M), int(C)
     if M < 0 or C < 0:
         raise ValueError(f"rung M={M} and column count C={C} must be ≥ 0")
-    flags = torch.empty((max(C, 1),), dtype=torch.uint8, device=dev)
+    # the bitmap of eligible ids, then the kernel's done-counter
+    scratch = torch.empty(((C + 31) // 32 + 1,), dtype=torch.int32, device=dev)
     surv = torch.empty((M,), dtype=torch.int32, device=dev)
     valid = torch.empty((M,), dtype=torch.bool, device=dev)
     n_surv = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _fn("postings_select_launch")(
             cols.data_ptr(), counts.data_ptr(), B * L,
-            float(np.float32(floor)), C, M, flags.data_ptr(),
+            float(np.float32(floor)), C, M, scratch.data_ptr(),
             surv.data_ptr(), valid.data_ptr(), n_surv.data_ptr(),
             _stream(dev))
     if err:

@@ -86,22 +86,30 @@ def _select_equal(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
-@pytest.mark.parametrize("B,L,M,floor", [
-    (1, 64, 8, 1.0),      # overflow: more distinct ids than M
-    (4, 128, 32, 2.0),
-    (7, 192, 64, 0.0),    # floor 0: every live id survives
-    (2, 64, 256, 3.0),    # M > N = B·L
-    (3, 128, 16, 1e9),    # nothing eligible
+@pytest.mark.parametrize("B,L,M,floor,C,top", [
+    (1, 64, 8, 1.0, 40, False),      # overflow: more distinct ids than M
+    (4, 128, 32, 2.0, 40, False),
+    (7, 192, 64, 0.0, 40, False),    # floor 0: every live id survives
+    (2, 64, 256, 3.0, 40, False),    # M > N = B·L
+    (3, 128, 16, 1e9, 40, False),    # nothing eligible
+    (4, 128, 64, 2.0, 45, True),     # C not a multiple of 32, C − 1 eligible
+    (3, 64, 8, 1.0, 1, True),        # C = 1: every live id is 0
 ])
-def test_postings_select_twin_matches_reference(rng, B, L, M, floor):
-    """Twin == `ref.postings_select` and the Pallas body, bit for bit."""
-    cols, counts = _merged(rng, B, L, 40)
+def test_postings_select_twin_matches_reference(rng, B, L, M, floor, C, top):
+    """Twin == `ref.postings_select` and the Pallas body, bit for bit, ids
+    in [0, C); with ``top`` the id C − 1 is eligible in row 0."""
+    cols, counts = _merged(rng, B, L, C)
+    if top:
+        cols[0, cols[0] == C - 1] = -1
+        cols[0, 0], counts[0, 0] = C - 1, 4.0
     got = ref.postings_select(torch.from_numpy(cols),
                               torch.from_numpy(counts), floor, M)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
     jargs = (jnp.asarray(cols), jnp.asarray(counts), jnp.float32(floor), M)
     _select_equal(got, JR.postings_select(*jargs))
     _select_equal(got, JK.postings_select(*jargs, INTERP))
+    if top:
+        assert C - 1 in got[0][got[1]].tolist()
 
 
 def test_postings_select_union_across_rows():

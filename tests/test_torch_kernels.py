@@ -74,6 +74,33 @@ def _rank_inputs(rng, R, n):
     return a, b, mask
 
 
+def _qn_inputs(rng, case, R, n):
+    """Rows for Qn: "random" is `_rank_inputs`; "m2m3" rows of m = 2 and
+    m = 3; "ties" rows whose valid a (even rows) or b (odd rows) all tie,
+    so a scale is 0 and r = 0; "full" m = n without ties; "mixed" rows of
+    m = 0 or 1 between joined rows, so that one block of the kernel (four
+    rows at n ≤ 256, two at n ≤ 512) holds both."""
+    a, b, mask = _rank_inputs(rng, R, n)
+    if case == "m2m3":
+        mask[:] = 0.0
+        for r in range(R):
+            mask[r, rng.choice(n, 2 + r % 2, replace=False)] = 1.0
+    elif case == "ties":
+        a[0::2] = 1.5
+        b[1::2] = -0.25
+    elif case == "full":
+        perm = lambda: np.stack([rng.permutation(n) for _ in range(R)])
+        a = (perm() * 0.37 + 0.1).astype(np.float32)
+        b = (perm() * -0.61 + 2.0).astype(np.float32)
+        mask[:] = 1.0
+    elif case == "mixed":
+        mask[0::2] = 0.0
+        mask[0::4, rng.integers(n)] = 1.0
+    else:
+        assert case == "random", case
+    return a, b, mask
+
+
 def _transform_inputs(rng, R, n, ties=True):
     """Rows for rank_transform: ties, NaNs in valid and masked slots, 0/1
     masks with an all-masked row (R ≥ 2), any n ≥ 1."""
@@ -154,15 +181,23 @@ def test_rank_moments_twin_matches_pallas_interpret(rng, jx):
     _close(got, want, 1e-6)
 
 
-def test_qn_twin_matches_reference_and_pallas(rng, jx):
+@pytest.mark.parametrize("case,R,n", [("random", 6, 16), ("m2m3", 8, 16),
+                                      ("ties", 6, 16), ("full", 4, 64),
+                                      ("mixed", 8, 64)])
+def test_qn_twin_matches_reference_and_pallas(rng, jx, case, R, n):
     """Twin == `ref.qn_correlation` and the Pallas body at 5e-5
-    (tests/test_rank_moments.py), degenerate rows included."""
-    a, b, mask = _rank_inputs(rng, 6, 16)
+    (tests/test_rank_moments.py), degenerate and edge rows included."""
+    a, b, mask = _qn_inputs(rng, case, R, n)
     got = ref.qn_correlation(*(torch.from_numpy(x) for x in (a, b, mask)))
     args = [jx.jnp.asarray(x) for x in (a, b, mask)]
     _close(got, jx.ref.qn_correlation(*args), 5e-5)
     _close(got, jx.ops.qn_correlation(*args, jx.interp), 5e-5)
-    assert got[0] == 0 and got[1] == 0   # no valid pair → r = 0
+    if case in ("random", "mixed"):
+        assert got[0] == 0 and got[1] == 0   # no valid pair → r = 0
+    if case == "ties":
+        assert (got == 0).all()              # a tied scale is 0 → r = 0
+    if case == "mixed":
+        assert (got[0::2] == 0).all()
 
 
 @pytest.mark.parametrize("R,n,ties", [(8, 64, False), (16, 256, True),
@@ -357,11 +392,20 @@ def test_cuda_rank_moments_matches_twin(rng, cuda, kind, tol, R, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,n", [(12, 64), (40, 256), (7, 100), (3, RT.MAX_N)])
-def test_cuda_qn_matches_twin(rng, cuda, R, n):
-    a, b, mask = (torch.from_numpy(x).to(cuda) for x in _rank_inputs(rng, R, n))
+@pytest.mark.parametrize("case,R,n", [
+    ("random", 12, 64), ("random", 40, 256), ("random", 7, 100),
+    ("random", 3, RT.MAX_N), ("m2m3", 16, 256), ("ties", 12, 256),
+    ("full", 8, 256), ("mixed", 24, 256), ("random", 9, 257),
+    ("mixed", 12, 257), ("full", 4, 512), ("random", 5, 600), ("mixed", 12, 1000),
+    ("m2m3", 8, RT.MAX_N), ("full", 4, RT.MAX_N), ("mixed", 12, RT.MAX_N)])
+def test_cuda_qn_matches_twin(rng, cuda, case, R, n):
+    """Within 5e-5 of the twin (the kernel computes its order statistics
+    bit for bit); n > 256 takes two, four or eight warps a scale."""
+    a, b, mask = (torch.from_numpy(x).to(cuda) for x in _qn_inputs(rng, case, R, n))
+    before = RT.qn_correlation.launches
     got = RT.qn_correlation(a, b, mask)
     torch.cuda.synchronize()
+    assert RT.qn_correlation.launches == before + 1
     torch.testing.assert_close(got, ref.qn_correlation(a, b, mask),
                                rtol=5e-5, atol=5e-5)
 
@@ -437,16 +481,26 @@ def test_cuda_postings_merge_matches_twin(rng, cuda, B, L, ids):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,M,floor,C", [
-    (1, 64, 8, 1.0, 40), (4, 128, 32, 2.0, 40), (7, 192, 64, 0.0, 40),
-    (2, 64, 256, 3.0, 40), (3, 128, 16, 1e9, 40),
-    (32, 8192, 1024, 3.0, 131072), (32, 8192, 64, 3.0, 131072)])
-def test_cuda_postings_select_matches_twin(rng, cuda, B, L, M, floor, C):
+@pytest.mark.parametrize("B,L,M,floor,C,top", [
+    (1, 64, 8, 1.0, 40, False), (4, 128, 32, 2.0, 40, False),
+    (7, 192, 64, 0.0, 40, False), (2, 64, 256, 3.0, 40, False),
+    (3, 128, 16, 1e9, 40, False), (32, 8192, 1024, 3.0, 131072, False),
+    (32, 8192, 64, 3.0, 131072, False),
+    (4, 128, 32, 2.0, 45, True),            # C not a multiple of 32
+    (2, 64, 8, 1.0, 1, True),               # C = 1
+    (32, 8192, 1024, 3.0, 131071, True),
+    (8, 8192, 4096, 1.0, 1 << 22, True)])   # 32 tiles of the compaction
+def test_cuda_postings_select_matches_twin(rng, cuda, B, L, M, floor, C, top):
     """Bit-equal surv, valid and n_surv: overflow (n_surv > M), M > B·L,
-    floor 0 and an empty selection included. Rows are merge outputs."""
-    cols, counts = ref.postings_merge(_window_ids(rng, B, L, min(C, 4 * L)))
+    floor 0 and an empty selection included. Rows are merge outputs; with
+    ``top`` ids are drawn from all of [0, C) and C − 1 is eligible."""
+    ids = C if top else min(C, 4 * L)
+    cols, counts = ref.postings_merge(_window_ids(rng, B, L, ids))
     counts = torch.where(cols >= 0, torch.from_numpy(
         rng.integers(1, 5, size=(B, L)).astype(np.float32)), 0.0)
+    if top:
+        cols[0] = torch.where(cols[0] == C - 1, -1, cols[0])
+        cols[0, 0], counts[0, 0] = C - 1, 4.0
     cols, counts = cols.to(cuda), counts.to(cuda)
     before = PM.postings_select.launches
     got = PM.postings_select(cols, counts, floor, M, C)
