@@ -69,10 +69,10 @@ __device__ inline int block_exclusive_scan(int x, int* scratch, int* total) {
   return incl - x + (warp > 0 ? scratch[warp - 1] : 0);
 }
 
-// Ascending bitonic sort of keys[0..np2) (np2 a power of two), carrying
-// vals along when it is not null. Ends with a barrier.
-template <typename K, typename V>
-__device__ void bitonic_sort(K* keys, V* vals, int np2) {
+// Ascending bitonic sort of keys[0..np2) (np2 a power of two). Ends with
+// a barrier.
+template <typename K>
+__device__ void bitonic_sort(K* keys, int np2) {
   for (int k = 2; k <= np2; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       __syncthreads();
@@ -84,11 +84,6 @@ __device__ void bitonic_sort(K* keys, V* vals, int np2) {
           if ((a > b) == up) {
             keys[i] = b;
             keys[p] = a;
-            if (vals) {
-              const V t = vals[i];
-              vals[i] = vals[p];
-              vals[p] = t;
-            }
           }
         }
       }

@@ -54,7 +54,7 @@ containment_kernel(const int32_t* __restrict__ q_kh, const float* __restrict__ q
     nvalid += __syncthreads_count(ok);
   }
   for (int b = threadIdx.x; b < B; b += blockDim.x) counts[b] = 0;
-  repro::bitonic_sort<unsigned long long, int>(keys, nullptr, np2);
+  repro::bitonic_sort(keys, np2);
 
   const int total = B * nq;
   for (int t = threadIdx.x; t < total; t += blockDim.x) {

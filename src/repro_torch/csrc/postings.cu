@@ -68,7 +68,7 @@ postings_merge_kernel(const int32_t* __restrict__ cand, int L, int np2, int32_t*
     const int32_t v = i < L ? in[i] : -1;
     s[i] = v < 0 ? INT_MAX : v;
   }
-  repro::bitonic_sort<int32_t, int32_t>(s, nullptr, np2);
+  repro::bitonic_sort(s, np2);
 
   const int per = (np2 + blockDim.x - 1) / blockDim.x;
   const int lo = min(static_cast<int>(threadIdx.x) * per, np2);

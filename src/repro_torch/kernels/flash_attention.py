@@ -6,10 +6,16 @@ Lk (the Pallas ``Lq % block_q`` restriction is a TPU tiling artifact), with
 q and k/v each float32 or bfloat16, over strided ``[B, H, L, D]`` views
 whose last dimension is contiguous. Semantics:
 `repro_torch.kernels.ref.flash_attention`, its plain twin.
+
+The wrapper picks the kernel by shape: a launch with at most
+``SPLIT_ROWS`` query rows (positions × heads of a group) per (batch, KV
+head) — decode — goes to ``flash_fwd_split``, which cuts the keys into
+runs (`split_plan`) and needs a workspace; the rest to ``flash_fwd``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,12 +24,50 @@ from repro_torch.kernels import build
 #: head dims the library instantiates
 HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the split-key kernel's most query rows per (batch, KV head) and its key
+#: tile (``kDecRows``, ``kDecKeys`` in csrc/flash_attention.cu)
+SPLIT_ROWS, SPLIT_TILE = 16, 64
+#: SMs of each device, read once
+_SMS: dict = {}
+#: split-key workspace per (device, stream): a float32 buffer whose first
+#: ``counters`` words are the done-counters (0 between launches), then the
+#: partials
+_WORKSPACE: dict = {}
 
 
+def split_plan(B: int, Hkv: int, Lq: int, Lk: int, window: int, sms: int):
+    """(splits, keys a split, first key) of the split-key kernel: the keys
+    the masks leave to some row, ``[key0, Lk)`` (queries are right-aligned,
+    so the last row sees key Lk − 1), cut into whole 64-key tiles so that
+    the grid of B·Hkv·splits blocks is at least twice the ``sms`` SMs when
+    the keys allow it."""
+    key0 = max(0, Lk - Lq - window + 1) if window > 0 else 0
+    keys = Lk - key0
+    want = -(-2 * sms // (B * Hkv))
+    per = max(SPLIT_TILE, keys // want // SPLIT_TILE * SPLIT_TILE)
+    return max(1, -(-keys // per)), per, key0
+
+
+def _workspace(dev: torch.device, stream: int, counters: int, floats: int):
+    """(buffer, counter words) with at least ``counters`` zeroed counters
+    and ``floats`` partial floats; allocated (zeroed) only when it grows."""
+    key = (dev.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[1] < counters or ws[0].numel() - ws[1] < floats:
+        have = (0, 0) if ws is None else (ws[1], ws[0].numel() - ws[1])
+        cnt = -(-max(counters, have[0]) // 4) * 4   # keeps the partials 16-byte aligned
+        ws = (torch.zeros(cnt + max(floats, have[1]), dtype=torch.float32,
+                          device=dev), cnt)
+        _WORKSPACE[key] = ws
+    return ws
+
+
+@functools.cache
 def _launch_fn():
+    """The library's launcher, typed once (a decode step calls it per layer)."""
     f = build.library("flash_attention").flash_attention_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    f.argtypes = [P] * 5 + [I] * 10 + [P]
+    f.argtypes = [P] * 5 + [I] * 13 + [P] * 3
     f.restype = I
     return f
 
@@ -60,11 +104,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return out
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out)
                                          for i in range(3)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    splits = per = key0 = 0
+    done = part = None
+    if Lq * (Hq // Hkv) <= SPLIT_ROWS:
+        sms = _SMS.get(dev.index)
+        if sms is None:
+            sms = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits, per, key0 = split_plan(B, Hkv, Lq, Lk, int(window), sms)
+        buf, cnt = _workspace(dev, stream, B * Hkv,
+                              B * Hkv * splits * Lq * (Hq // Hkv) * (D + 2))
+        done = buf.data_ptr()
+        part = done + 4 * cnt
     with torch.cuda.device(dev):
         err = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                            ctypes.addressof(strides), B, Hq, Hkv, Lq, Lk, D,
                            int(bool(causal)), int(window), _DTYPES[q.dtype],
-                           _DTYPES[k.dtype], torch.cuda.current_stream(dev).cuda_stream)
+                           _DTYPES[k.dtype], splits, per, key0, done, part, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     build.count_launch(flash_attention)

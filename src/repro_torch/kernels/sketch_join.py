@@ -13,8 +13,9 @@ import torch
 
 from repro_torch.kernels import build
 
-#: shared-memory bound: 12 bytes for each of next_pow2(n) candidate slots
-#: must fit the 48 KB a launch gets without opting in to more
+#: shared-memory bound: the kernel's hash table (32 bytes for each of
+#: next_pow2(n) candidate slots up to 1024, 16 beyond) and the values must
+#: fit the 48 KB a launch gets without opting in to more
 MAX_N = 2048
 
 

@@ -123,7 +123,8 @@ def _close(got, want, tol):
 # twins against the JAX package
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,nq,n,C", [(1, 64, 64, 8), (3, 128, 96, 13)])
+@pytest.mark.parametrize("B,nq,n,C", [(1, 64, 64, 8), (3, 128, 96, 13),
+                                      (8, 64, 64, 64)])
 def test_sketch_join_twin_matches_reference(rng, jx, B, nq, n, C):
     """Twin == `ref.sketch_join_moments_batched` at 1e-5
     (tests/test_kernels.py's tolerance)."""
@@ -338,6 +339,9 @@ def test_flash_attention_twin_matches_reference_and_pallas(
     (1, 4, 2, 37, 37, 32, True, 5),       # a window inside the tile
     (1, 6, 3, 5, 70, 64, True, 16),       # window + right-aligned queries
     (1, 2, 1, 9, 30, 32, False, 4),       # window without the causal mask
+    (1, 8, 2, 1, 129, 64, False, 0),      # decode, group 4, keys not a tile multiple
+    (2, 4, 1, 1, 257, 32, True, 0),       # the same, causal
+    (1, 4, 2, 2, 40, 32, True, 8),        # two right-aligned queries, window 8
 ])
 def test_flash_attention_twin_ragged_and_masked(rng, jx, B, Hq, Hkv, Lq, Lk, D,
                                                 causal, window):
@@ -359,16 +363,53 @@ def test_flash_attention_twin_ragged_and_masked(rng, jx, B, Hq, Hkv, Lq, Lk, D,
         rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B,Hkv,Lq,Lk,window,sms", [
+    (4, 4, 1, 2048, 0, 132),      # the LM path's decode: 32 splits of 64 keys
+    (4, 4, 1, 2017, 0, 132),      # a ragged cache
+    (2, 5, 1, 2048, 1024, 132),   # hymba's decode with a window: keys 1024-2047
+    (1, 1, 1, 1, 0, 132),         # one key
+    (1, 4, 7, 0, 0, 132),         # no key at all: one empty split
+    (64, 8, 1, 4100, 0, 132),     # a wide batch: splits of several tiles
+    (2, 4, 3, 300, 16, 132),      # right-aligned rows with a window: keys 282-299
+])
+def test_flash_split_plan_covers_the_visible_keys(B, Hkv, Lq, Lk, window, sms):
+    """The split-key kernel's plan: whole 64-key tiles that cover exactly
+    the keys some row may see, in enough blocks to fill the card twice
+    when there are keys enough."""
+    splits, per, key0 = FA.split_plan(B, Hkv, Lq, Lk, window, sms)
+    first = max(0, Lk - Lq - window + 1) if window > 0 else 0
+    assert key0 == first and splits >= 1 and per % FA.SPLIT_TILE == 0
+    assert key0 + (splits - 1) * per < max(Lk, 1) <= key0 + splits * per or Lk == key0
+    tiles = -(-(Lk - key0) // FA.SPLIT_TILE)
+    assert B * Hkv * splits >= min(2 * sms, B * Hkv * max(tiles, 1))
+    if (B, Hkv, Lk) == (4, 4, 2048):
+        assert (splits, per) == (32, 64)
+
+
 # ----------------------------------------------------------------------------
 # CUDA kernels against their twins, on the card
 # ----------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,nq,n,C", [(1, 64, 64, 8), (3, 100, 96, 13),
-                                      (32, 256, 256, 128),
-                                      (2, 64, SJ.MAX_N, 4)])
-def test_cuda_sketch_join_matches_twin(rng, cuda, B, nq, n, C):
-    args = _torch_join_args(*_join_inputs(rng, B, nq, n, C), device=cuda)
+@pytest.mark.parametrize("B,nq,n,C,dup", [
+    (1, 64, 64, 8, False), (3, 100, 96, 13, False), (2, 64, SJ.MAX_N, 4, False),
+    # the scan's buckets at the engine's sketch size: 1, 8 and 32 queries
+    (1, 256, 256, 4096, False), (8, 256, 256, 512, False), (32, 256, 256, 128, False),
+    (3, 64, 1, 9, False),          # one slot a candidate
+    (4, 256, 256, 16, True),       # candidates with repeated valid keys
+])
+def test_cuda_sketch_join_matches_twin(rng, cuda, B, nq, n, C, dup):
+    """1e-5 against the twin; a moments-only launch's moments equal a full
+    launch's bit for bit. With ``dup``, query 0's slot 4 matches five
+    valid slots of candidate 0 and slot 5 two of candidate 3: equal keys
+    sum."""
+    inp = _join_inputs(rng, B, nq, n, C)
+    if dup:
+        qk, _, qm, ck, _, cm = inp
+        ck[0, 5:9] = ck[0, 4] = qk[0, 4]
+        ck[3, [0, 7]] = qk[0, 5]
+        qm[0, 4:6] = cm[0, 4:9] = cm[3, [0, 7]] = 1.0
+    args = _torch_join_args(*inp, device=cuda)
     before = SJ.sketch_join_moments_batched.launches
     got = SJ.sketch_join_moments_batched(*args)
     lean = SJ.sketch_join_moments_batched(*args, with_aligned=False)
@@ -378,6 +419,8 @@ def test_cuda_sketch_join_matches_twin(rng, cuda, B, nq, n, C):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lean[0], got[0], rtol=0, atol=0)
+    if dup:
+        assert int(got[2][0, 0, 4]) == 1 and int(got[2][0, 3, 5]) == 1
 
 
 @pytest.mark.gpu
@@ -567,6 +610,20 @@ def test_cuda_hash_build_matches_twin(rng, cuda, shape, offset):
     (1, 6, 3, 5, 70, 96, True, 16, "float32", "float32"),
     (1, 4, 2, 130, 200, 128, True, 0, "bfloat16", "float32"),
     (1, 4, 2, 7, 0, 64, True, 0, "float32", "float32"),         # no keys at all
+] + [
+    # the split-key path: one query over a cache, group 1 and group 8
+    (2, Hq, Hkv, 1, Lk, 64, False, 0, "float32", kvdt)
+    for Lk in (1, 63, 65, 2017, 2048, 4100) for kvdt in ("float32", "bfloat16")
+    for Hq, Hkv in ((4, 4), (32, 4))
+] + [
+    (2, 16, 4, 2, 300, 64, True, 0, "float32", "bfloat16"),   # 2-4 positions, causal
+    (1, 16, 4, 3, 97, 128, True, 0, "float32", "float32"),
+    (2, 16, 4, 4, 300, 64, True, 16, "float32", "bfloat16"),  # and a window of 16
+    (1, 8, 4, 3, 70, 32, False, 16, "bfloat16", "bfloat16"),
+    (1, 4, 2, 7, 3, 64, True, 0, "float32", "float32"),       # Lq > Lk: rows see no key
+    (2, 25, 5, 1, 2048, 64, True, 0, "float32", "bfloat16"),  # hymba's heads
+    (2, 25, 5, 1, 2048, 64, True, 1024, "float32", "float32"),
+    (1, 12, 4, 1, 333, 96, False, 0, "bfloat16", "float32"),
 ])
 def test_cuda_flash_attention_matches_twin(rng, cuda, B, Hq, Hkv, Lq, Lk, D,
                                            causal, window, qdt, kvdt):
@@ -586,6 +643,8 @@ def test_cuda_flash_attention_matches_twin(rng, cuda, B, Hq, Hkv, Lq, Lk, D,
         assert got.dtype == args[0].dtype and got.shape == args[0].shape
         want = ref.flash_attention(*args, causal=causal, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        if causal and Lq > Lk:
+            assert bool((got[:, :, :Lq - Lk] == 0).all())
 
 
 @pytest.mark.gpu
