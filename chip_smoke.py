@@ -45,7 +45,9 @@ fatal on failure (exit code 1, no result line):
                 4096 rows of which 1024 join, and 16384 of which 32 do),
                 and checked at edge rows (m = 0–3, all-tied values, m = n
                 with and without ties, unjoined rows between joined ones;
-                n = 7, 256, 257, 1000 and 2048).
+                n = 7, 256, 257, 1000 and 2048). rank_moments is checked
+                and timed (CUDA events and ``torch.profiler``) at (b) and
+                at the wider sketches too.
   5. slice    — with every launch count at 0, `Server.warmup` and then
                 `Server.query_columns` on 64 planted queries (a group's
                 latent column, sharing its keys) for every scorer ×
@@ -56,7 +58,9 @@ fatal on failure (exit code 1, no result line):
                 top-k must equal the CPU plain path's (ids except near-ties,
                 r and scores within 5e-5, m exactly).
   6. stage-1 kernels — containment_hits (the 32-query bucket against all C
-                candidates; hits exactly equal), postings_merge (the
+                candidates, the 8- and 1-query buckets against all C, and
+                the 32-query bucket against one delta segment's 16384
+                columns; hits exactly equal), postings_merge (the
                 bucket's real postings windows at the corpus's W; the
                 (id, count) sets of every row equal) and postings_select
                 (the merge output at the base rung, which overflows, and at
@@ -564,24 +568,11 @@ def phase_kernels(index, buckets, keys, vals, dev):
     joined, joined2 = int((m > 0).sum()), int((m >= 2).sum())
     if joined < B * COLS:
         fail(f"{joined} of the kernel phase's rows joined, expected {B * COLS}")
-    errs = []
-    for kind, tol in (("spearman", 1e-6), ("rin", 2e-5)):
-        g, wt = RT.rank_moments(qv, a, w, kind), ref.rank_moments(qv, a, w, kind)
-        torch.cuda.synchronize()
-        errs.append(check_close(f"rank_moments kernel ({kind})", [g], [wt], tol))
     R = qv.shape[0]
-    rows["rank_moments"] = dict(
-        source="src/repro_torch/csrc/rank_transform.cu",
-        replaces="src/repro/kernels/rank_transform.py:213",
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: RT.rank_moments(qv, a, w, "spearman"), 50),
-        plain_ms=cuda_ms(lambda: ref.rank_moments(qv, a, w, "spearman"), 10),
-        # the mask of every row; a and b of the rows that joined
-        work=(R * nq * 4 + joined * nq * 8 + R * 6 * 4, float(4 * (m * m).sum())))
-
-    # Qn at (a) this bucket, (b) a chunk of the bucket's scan that no row
-    # joins (the next four tables) and (c) the library's chunk (planted
-    # query 0 against the first RK.CHUNK columns), then at edge rows
+    # Qn and rank_moments at (a) this bucket, (b) a chunk of the bucket's
+    # scan that no row joins (the next four tables), Qn also at (c) the
+    # library's chunk (planted query 0 against the first RK.CHUNK columns),
+    # then both at wider sketches, and Qn at edge rows
     c_b = tuple(t[sel + COLS].contiguous() for t in (sh.key_hash, sh.values, sh.mask))
     _, al_b, hit_b = SJ.sketch_join_moments_batched(q_kh, q_val, q_mask, *c_b)
     q0 = SV.build_query_sketches(keys[:1], vals[:1], n=N, device=dev).map(lambda t: t[0])
@@ -593,6 +584,42 @@ def phase_kernels(index, buckets, keys, vals, dev):
     rng = np.random.default_rng(SEED)
     for nw_, rw_, jw_ in QN_WIDE:
         qn_in[f"n{nw_}_{rw_}x{jw_}"] = _qn_wide_rows(rng, nw_, rw_, jw_, dev)
+
+    rm_shapes = {}
+    for key, (x, y, wm) in qn_in.items():
+        if key == "c":
+            continue
+        errs = []
+        for kind, tol in (("spearman", 1e-6), ("rin", 2e-5)):
+            g, wt = RT.rank_moments(x, y, wm, kind), ref.rank_moments(x, y, wm, kind)
+            torch.cuda.synchronize()
+            errs.append(check_close(f"rank_moments kernel ({kind}) at shape ({key})", [g], [wt],
+                                    tol))
+        mk = (wm > 0).sum(-1).double()
+        spear = lambda: RT.rank_moments(x, y, wm, "spearman")
+        rm_shapes[key] = dict(
+            rows=x.shape[0], n=x.shape[1], joined_rows=int((mk > 0).sum()), max_abs_err=max(errs),
+            ms=cuda_ms(spear, 20), device_ms=profiled_ms(spear, 10, "rank_moments_kernel"),
+            plain_ms=cuda_ms(lambda: ref.rank_moments(x, y, wm, "spearman"), 3),
+            # the mask of every row, a and b of the rows that joined; what
+            # the function needs of operations: a comparison sort of each
+            # side (m·⌈log2 m⌉ compares) and the six sums of a valid slot
+            work=(x.shape[0] * x.shape[1] * 4 + int((mk > 0).sum()) * x.shape[1] * 8
+                  + x.shape[0] * 6 * 4,
+                  float((2 * mk * torch.ceil(torch.log2(mk.clamp(min=1))) + 6 * mk).sum())))
+    for sh_row in rm_shapes.values():
+        sh_row["bound_ms"], sh_row["bound_by"] = bound_ms(*sh_row.pop("work"))
+    rows["rank_moments"] = dict(
+        source="src/repro_torch/csrc/rank_transform.cu",
+        replaces="src/repro/kernels/rank_transform.py:213",
+        max_abs_err=rm_shapes["a"]["max_abs_err"],
+        ms=cuda_ms(lambda: RT.rank_moments(qv, a, w, "spearman"), 50),
+        device_ms=rm_shapes["a"]["device_ms"],
+        plain_ms=cuda_ms(lambda: ref.rank_moments(qv, a, w, "spearman"), 10),
+        shapes=rm_shapes,
+        # the mask of every row; a and b of the rows that joined
+        work=(R * nq * 4 + joined * nq * 8 + R * 6 * 4, float(4 * (m * m).sum())))
+
     shapes, errs = {}, []
     for key, (x, y, wm) in qn_in.items():
         g, wt = RT.qn_correlation(x, y, wm), ref.qn_correlation(x, y, wm)
@@ -630,7 +657,8 @@ def phase_kernels(index, buckets, keys, vals, dev):
     say(f"kernels: B={B} nq={nq} chunk={C} n={n} rows={R} joined_rows={joined} "
         f"m_range=[{int(m[m > 0].min())}, {int(m.max())}]; sketch join also at B="
         f"{', '.join(f'{bw} (C={len(buckets[bw][2])})' for bw in JOIN_BUCKETS)} and "
-        f"moments only — each matches its twin")
+        f"moments only; rank_moments also at ({', '.join(k for k in rm_shapes if k != 'a')}) "
+        f"— each matches its twin")
     return rows
 
 
@@ -876,15 +904,38 @@ def phase_stage1_kernels(index, keys, vals, dev):
              f"{int((got != want).sum())} of {got.numel()} counts")
     if int((got >= COLS).sum()) < B * COLS:
         fail("the planted queries do not join their own tables' columns")
+    # also the 8- and 1-query buckets, and the 32-query bucket against one
+    # delta segment of the live index (its first LIVE_CAP columns)
+    ct_args = {"bucket": args}
+    for bw in JOIN_BUCKETS:
+        ct_args[f"B={bw}"] = (q_kh[:bw].contiguous(), q_mask[:bw].contiguous(), sh.key_hash,
+                              sh.mask)
+    ct_args["segment"] = (q_kh, q_mask, sh.key_hash[:LIVE_CAP], sh.mask[:LIVE_CAP])
+    ct_shapes = {}
+    for key, a_ in ct_args.items():
+        g, wt = CT.containment_hits_batched(*a_), ref.containment_hits_batched(*a_)
+        torch.cuda.synchronize()
+        if not torch.equal(g, wt):
+            fail(f"containment_hits kernel differs from its twin at shape ({key}) in "
+                 f"{int((g != wt).sum())} of {g.numel()} counts")
+        Bk, Ck = a_[0].shape[0], a_[2].shape[0]
+        kern = lambda: CT.containment_hits_batched(*a_)
+        ct_shapes[key] = dict(
+            B=Bk, C=Ck, ms=cuda_ms(kern, 20), device_ms=profiled_ms(kern, 10, "containment"),
+            plain_ms=cuda_ms(lambda: ref.containment_hits_batched(*a_), 2, 1),
+            work=(Ck * n * 8 + Bk * nq * 8 + Bk * Ck * 4, float(Bk * Ck * (nq + n))))
+        del g, wt
+    for sh_row in ct_shapes.values():
+        sh_row["bound_ms"], sh_row["bound_by"] = bound_ms(*sh_row.pop("work"))
     # bytes: the candidate key and mask planes, the queries, the hits;
     # operations: one compare per element of a sorted merge of each pair
     rows["containment_hits"] = dict(
         source="src/repro_torch/csrc/containment.cu",
         replaces="src/repro/kernels/containment.py:68",
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: CT.containment_hits_batched(*args), 20),
-        plain_ms=cuda_ms(lambda: ref.containment_hits_batched(*args), 2, 1),
-        library_ms=None,
+        ms=ct_shapes["bucket"]["ms"], device_ms=ct_shapes["bucket"]["device_ms"],
+        plain_ms=ct_shapes["bucket"]["plain_ms"],
+        library_ms=None, shapes=ct_shapes,
         work=(C * n * 8 + B * nq * 8 + B * C * 4, float(B * C * (nq + n))))
 
     src = CD.InvertedSource(TI.build_postings(sh.key_hash, sh.mask), C=C, n=n)
@@ -947,8 +998,9 @@ def phase_stage1_kernels(index, keys, vals, dev):
         library_ms=cuda_ms(lambda: torch.unique(elig, sorted=True), 50),
         work=(B * L * 8 + rung * 5 + 4, float(B * L)))
     say(f"stage-1 kernels: B={B} nq={nq} C={C} n={n} E={src.E} W={src.W} "
-        f"L={L} n_surv={n_surv} rungs=({base}, {rung}); postings_select also at "
-        f"(C, M) = {list(SELECT_EDGES)} — each matches its twin")
+        f"L={L} n_surv={n_surv} rungs=({base}, {rung}); containment_hits also at "
+        f"B = {', '.join(str(b) for b in JOIN_BUCKETS)} and against {LIVE_CAP} columns; "
+        f"postings_select also at (C, M) = {list(SELECT_EDGES)} — each matches its twin")
     return rows
 
 
@@ -1825,8 +1877,10 @@ def speed(parent: str) -> None:
     beside ``DIR/src`` and run there and here with ``--speed-side``, in the
     order parent, change, change, parent; each side's output goes to
     ``speed<i>_<side>.log`` beside ``DIR`` and its numbers to a ``speed``
-    JSON line here: the sketch join and attention rows, and the `off`
-    dispatch, live-index call, library, scheduler and LM decode times."""
+    JSON line here: the sketch join, attention, rank_moments, rank_transform,
+    Qn and containment rows, and the `off` dispatch (also by estimator), the
+    scan-source `safe`/`topm` dispatch, live-index call, library, scheduler
+    and LM decode times."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     if not os.path.isdir(os.path.join(parent, "src", "repro_torch")):
@@ -1854,6 +1908,10 @@ def speed(parent: str) -> None:
         say(f"speed {i} {side} " + json.dumps(dict(
             seconds=time.perf_counter() - t0, kernels=lines["SPEED"],
             off_dispatch_ms=[ts["dispatch_p50_ms"]["off"], ts["dispatch_p99_ms"]["off"]],
+            off_dispatch_ms_by_estimator={e: [v["p50"], v["p99"]] for e, v in
+                                          ts["off_dispatch_ms_by_estimator"].items()},
+            scan_source_dispatch_ms={m: [ts["dispatch_p50_ms"][m], ts["dispatch_p99_ms"][m]]
+                                     for m in ("safe(scan)", "topm(scan)")},
             live_call_ms={k: [lc[f"call_p50_ms_{k}"], lc[f"call_p99_ms_{k}"]]
                           for k in ("8_segments", "1_segment")},
             library_ms_per_query=lines["library"]["ms_per_query_by_estimator"],
@@ -1917,9 +1975,11 @@ def main(argv) -> None:
     buckets = {bw: kernel_inputs(groups, srv.chunk_for(bw), bw)
                for bw in (BUCKET,) + JOIN_BUCKETS}
     if side:
-        # one side of --speed: the two kernels, the paths they serve and
-        # the host-bound phases whose numbers vary most between calls
+        # one side of --speed: the redesigned kernels, the paths they serve
+        # and the host-bound phases whose numbers vary most between calls
         rows = phase_kernels(index, buckets, keys, vals, dev)
+        rows.update(phase_rank_transform(index, keys, vals, dev))
+        rows.update(phase_stage1_kernels(index, keys, vals, dev))
         rows.update(phase_flash(dev))
         phase_two_stage(index, keys, vals, dev)
         phase_lifecycle(groups, index, keys, vals, dev)
@@ -1929,7 +1989,8 @@ def main(argv) -> None:
         say("SPEED " + json.dumps({
             k: dict({f: v for f, v in r.items() if f != "work"},
                     bound_ms=bound_ms(*r["work"])[0])
-            for k, r in rows.items() if k.startswith(("sketch_join", "flash"))}))
+            for k, r in rows.items()
+            if k.startswith(("sketch_join", "flash", "rank_", "containment", "qn"))}))
         return
     rows = timed("hash_build", phase_hash_build, groups, dev)
     rows.update(timed("kernels", phase_kernels, index, buckets, keys, vals, dev))

@@ -1,8 +1,8 @@
-// Block-level helpers shared by the port's kernels: deterministic sums
-// (a fixed shuffle tree, then warp 0 over the per-warp partials — no
-// atomics, so a result never depends on scheduling), an exclusive prefix
-// sum of one int per thread, and a bitonic sort of a power-of-two array in
-// shared (or the block's own global) memory.
+// Helpers shared by the port's kernels: a warp's deterministic sum (a
+// fixed shuffle tree — no atomics, so a result never depends on
+// scheduling), an exclusive prefix sum over the block of one int per
+// thread, and a bitonic sort of a power-of-two array in shared (or the
+// block's own global) memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,29 +16,6 @@ template <typename T>
 __device__ __forceinline__ T warp_sum(T x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
   return x;
-}
-
-// Sums v[0..N) over the block; the totals are valid in thread 0.
-// scratch: N * kMaxWarps elements of shared memory.
-template <typename T, int N>
-__device__ void block_sum(T (&v)[N], T* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
-  __syncthreads();  // scratch may still be read by a previous call
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) scratch[k * kMaxWarps + warp] = v[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      T x = lane < nwarps ? scratch[k * kMaxWarps + lane] : T(0);
-      v[k] = warp_sum(x);
-    }
-  }
 }
 
 // Exclusive prefix sum over the block of one int per thread, in thread

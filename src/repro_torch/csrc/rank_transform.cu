@@ -24,15 +24,36 @@
 // What bounds them on an H100: bytes, at the engine's data. Rows are join
 // samples and most candidates share no key with the query (m = 0), so the
 // kernels read a row's mask first and read its a and b only when the row
-// joined (m ≥ 1 for ranks, m ≥ 2 for Qn); the O(n²) rank compares and the
-// Qn bisection run only on those rows.
+// joined (m ≥ 1 for ranks, m ≥ 2 for Qn); the rank sorts and the Qn
+// bisection run only on those rows.
 //
-// rank_moments design: one block per row, the row in shared memory. Ranks
-// use the pairwise rule with integer counts, so 2·r is an exact integer and
-// the rin lookup index m·(2n+1) + 2r is exact (the table is the host's
-// float64 Φ⁻¹, as in the reference engine). Sums use a fixed reduction
-// tree: results are deterministic. Rows with m = 0 exit after reading
-// their mask, with the formula's value, zero.
+// rank_moments design. The pairwise rule walks all n slots for each of n
+// values, n² compares a joined row whatever m is, so the old one-block-a-
+// row kernel was bound by instruction issue at 28× its bytes. Here a row
+// gets the team layout of qn_kernel below: two groups of K warps (K = 1 up
+// to n = 256 with four rows a block, then 2, 4 and 8 up to MAX_N), the
+// mask read by coalesced loads and __ballot_sync, so a row with m = 0
+// writes its zeros having read its mask alone. Group 0 ranks a, group 1 b:
+// each sorts its row's 32-bit keys once — the value's order-preserving
+// bits, −0.0 made +0.0 first so the two tie — by the bitonic network of
+// group_sort, one min or max a value and stage. Masked slots, NaNs and
+// padding take the key ~0u, above every valid value (+inf included), so
+// they never join a value's run. In sorted order a run of equal keys spans
+// [first, last], found by head and tail flags and a max-/min-scan over
+// lanes and warps, and its 2r = first + last + 2 is the pairwise rule's
+// 2·#{x_j < x_i} + #{x_j = x_i} + 1, an exact integer (a NaN gets 1: it
+// compares with nothing), so the rin lookup index m·(2n+1) + 2r is exact
+// (the table is the host's float64 Φ⁻¹, as in the reference engine). Each
+// slot's key finds its run by a branchless lower_bound over the sorted
+// keys in shared memory. (A first version sorted 64-bit keys of value and
+// slot instead and needed no search; its 64-bit compares and selects ran
+// on the integer pipe at 1.5× this version's time.) Group 1 hands its 2r
+// to group 0 by slot, and group 0 sums the moments: int64 for spearman
+// (exact), float64 for rin (whose Σr is near 0, where float32 partial sums
+// lose digits), each lane its slots in order and then a fixed tree, so the
+// result is deterministic and one rounding from the exact sum. O(n log² n)
+// a joined row in registers and shuffles, no block-wide barrier for a row
+// that did not join.
 //
 // qn_correlation design. The Pallas kernel runs 31 full n × n count passes
 // a scale; here a scale sorts the valid values once and each of the 31
@@ -69,85 +90,8 @@ constexpr float kQnConstant = 2.21914f;
 constexpr float kBig = 3.4e38f;
 constexpr float kInvSqrt2 = 0.70710677f;  // float32(1/sqrt(2))
 
-// Loads a row's validity into shared memory and returns m, its valid slots;
-// loads the row's a and b as well only when m ≥ 1, so a row whose result
-// is zero costs its mask alone. m is block-uniform.
-__device__ int load_row(const float* a, const float* b, const float* w, size_t base, int n,
-                        float* sa, float* sb, unsigned char* sw) {
-  int m = 0;
-  for (int start = 0; start < n; start += blockDim.x) {
-    const int i = start + threadIdx.x;
-    int ok = 0;
-    if (i < n) {
-      ok = w[base + i] > 0.f;
-      sw[i] = static_cast<unsigned char>(ok);
-    }
-    m += __syncthreads_count(ok);
-  }
-  if (m == 0) return m;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sa[i] = a[base + i];
-    sb[i] = b[base + i];
-  }
-  __syncthreads();
-  return m;
-}
-
-__global__ void __launch_bounds__(kThreads)
-rank_moments_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    const float* __restrict__ w, int n, int kind,
-                    const float* __restrict__ table, float* __restrict__ out) {
-  extern __shared__ float smem[];  // a[n], b[n], then n validity bytes
-  float* sa = smem;
-  float* sb = smem + n;
-  unsigned char* sw = reinterpret_cast<unsigned char*>(smem + 2 * n);
-  __shared__ float scratch[5 * repro::kMaxWarps];
-  const int r = blockIdx.x;
-  const int m = load_row(a, b, w, static_cast<size_t>(r) * n, n, sa, sb, sw);
-  float* o = out + static_cast<size_t>(r) * 6;
-  if (m == 0) {
-    if (threadIdx.x < 6) o[threadIdx.x] = 0.f;
-    return;
-  }
-  float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  const float* row_tab = kind == 1 ? table + static_cast<size_t>(m) * (2 * n + 1) : nullptr;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (!sw[i]) continue;
-    const float ai = sa[i], bi = sb[i];
-    int lta = 0, eqa = 0, ltb = 0, eqb = 0;
-    for (int j = 0; j < n; ++j) {
-      if (sw[j]) {
-        const float aj = sa[j], bj = sb[j];
-        lta += aj < ai;
-        eqa += aj == ai;
-        ltb += bj < bi;
-        eqb += bj == bi;
-      }
-    }
-    const int ta = 2 * lta + eqa + 1, tb = 2 * ltb + eqb + 1;  // 2 × midrank
-    float ra, rb;
-    if (kind == 1) {
-      ra = row_tab[ta];
-      rb = row_tab[tb];
-    } else {
-      ra = 0.5f * static_cast<float>(ta);
-      rb = 0.5f * static_cast<float>(tb);
-    }
-    s[0] += ra;
-    s[1] += rb;
-    s[2] += ra * ra;
-    s[3] += rb * rb;
-    s[4] += ra * rb;
-  }
-  repro::block_sum(s, scratch);
-  if (threadIdx.x == 0) {
-    o[0] = static_cast<float>(m);
-#pragma unroll
-    for (int k = 0; k < 5; ++k) o[k + 1] = s[k];
-  }
-}
-
-// qn_correlation: a row's team is two groups of K warps, no block barrier.
+// qn_correlation and rank_moments: a row's team is two groups of K warps,
+// no block barrier.
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kQnE = 8;                  // values a lane holds
 constexpr int kQnWarpSlots = 32 * kQnE;  // 256: values a warp holds
@@ -216,6 +160,75 @@ __device__ __forceinline__ void group_sort(float (&x)[kQnE], float* xs, int i0, 
           x[s] = swap ? hi : lo;
           x[s | j] = swap ? lo : hi;
         }
+      }
+    }
+  }
+}
+
+// The same network over rank_moments' 32-bit keys: one min or max a value
+// and stage. (Kept apart from the float network above, whose generated
+// code Qn's timings rest on: sharing one template moved them.)
+template <int K>
+__device__ __forceinline__ void group_sort(uint32_t (&x)[kQnE], uint32_t* xs, int i0, int lane,
+                                           int bar) {
+  constexpr int E = kQnE;
+#pragma unroll
+  for (int k = 2; k <= kQnWarpSlots * K; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= kQnWarpSlots) {
+#pragma unroll
+        for (int s = 0; s < E; ++s) xs[i0 + s] = x[s];
+        group_sync<K>(bar);
+        const bool low = ((i0 & j) == 0) == ((i0 & k) == 0);
+        uint32_t y[E];
+#pragma unroll
+        for (int s = 0; s < E; ++s) y[s] = xs[(i0 + s) ^ j];
+#pragma unroll
+        for (int s = 0; s < E; ++s) x[s] = low ? min(x[s], y[s]) : max(x[s], y[s]);
+        group_sync<K>(bar);  // xs is written again by the next such stride
+      } else if (j >= E) {
+        const bool lower = (lane & (j / E)) == 0;
+        uint32_t y[E];  // all shuffles first, so they overlap
+#pragma unroll
+        for (int s = 0; s < E; ++s) y[s] = __shfl_xor_sync(kFull, x[s], j / E);
+#pragma unroll
+        for (int s = 0; s < E; ++s) {
+          const bool low = lower == (((i0 + s) & k) == 0);
+          x[s] = low ? min(x[s], y[s]) : max(x[s], y[s]);
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < E; ++s) {
+          if (s & j) continue;
+          const uint32_t lo = x[s], hi = x[s | j];
+          const bool up = ((i0 + s) & k) == 0;
+          x[s] = up ? min(lo, hi) : max(lo, hi);
+          x[s | j] = up ? max(lo, hi) : min(lo, hi);
+        }
+      }
+    }
+  }
+}
+
+// A row's mask as ballot words bits[0..nw): the row's 2K warps (w2 its
+// warp in the team) take its words in turn, coalesced reads, 8 words in
+// flight, each word a ballot. The row's barrier follows at the caller.
+template <int K>
+__device__ __forceinline__ void mask_words(const float* __restrict__ w, size_t base, int n,
+                                           int nw, uint32_t* bits, int w2, int lane) {
+  for (int w0 = w2; w0 < nw; w0 += 8 * 2 * K) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = (w0 + u * 2 * K) * 32 + lane;
+      v[u] = i < n ? w[base + i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (w0 + u * 2 * K < nw) {
+        const unsigned word = __ballot_sync(kFull, v[u] > 0.f);
+        if (lane == 0) bits[w0 + u * 2 * K] = word;
       }
     }
   }
@@ -385,23 +398,7 @@ qn_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const float inf = __int_as_float(0x7F800000);
   const size_t base = static_cast<size_t>(r) * n;
 
-  // the mask: the row's 2K warps take its words in turn, coalesced reads,
-  // 8 words in flight, each word a ballot
-  for (int w0 = half * K + wi; w0 < nw; w0 += 8 * 2 * K) {
-    float v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int i = (w0 + u * 2 * K) * 32 + lane;
-      v[u] = i < n ? w[base + i] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      if (w0 + u * 2 * K < nw) {
-        const unsigned word = __ballot_sync(kFull, v[u] > 0.f);
-        if (lane == 0) bits[w0 + u * 2 * K] = word;
-      }
-    }
-  }
+  mask_words<K>(w, base, n, nw, bits, half * K + wi, lane);
   named_sync(row_bar, 2 * T);
   // m, and each word's first compacted slot: a warp scan of the words'
   // counts, two words a lane (nw ≤ 64)
@@ -478,6 +475,222 @@ qn_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// Shared memory of one rank_moments row's team, in 32-bit words: the
+// mask's ballot words (to an even count), then for each group its sorted
+// keys and the 2r of each sorted position (256K each), group 1's 2r by slot
+// (256K), each group's cross-warp words (2K edge values, 2K scan carries),
+// and group 0's per-warp partial sums (five 64-bit integers or doubles a
+// warp, 8-byte aligned: every count before them is even).
+__host__ __device__ inline int rm_row_words(int n, int K) {
+  return (((n + 31) / 32 + 1) & ~1) + 2 * 2 * kQnWarpSlots * K + kQnWarpSlots * K + 2 * 4 * K +
+         2 * 5 * K;
+}
+
+constexpr uint32_t kNoValue = 0xFFFFFFFFu;  // key of masked slots, NaNs, padding
+
+// The sort key of a slot: the order-preserving bits of v (−0.0 as +0.0),
+// or kNoValue for a masked slot, a NaN or padding — above every valid
+// value, +inf included (0xFF800000).
+__device__ __forceinline__ uint32_t rank_key(float v, bool valid) {
+  if (!(valid && v == v)) return kNoValue;
+  const uint32_t bits = __float_as_uint(v == 0.f ? 0.f : v);
+  return (bits & 0x80000000u) ? ~bits : bits | 0x80000000u;
+}
+
+// One group's ranks: t2[s] = 2r of the lane's key[s] (1 for a NaN;
+// anything for a masked slot). The group sorts a copy of its keys (lane l
+// of warp w then holds sorted positions i0 + s, i0 = 256w + 8l), finds each
+// run of equal keys [first, last] by head and tail flags and a max-/min-scan
+// over lanes and warps, and stores the sorted keys (xs) and each
+// position's 2r = first + last + 2 (rr); each key then finds its run's
+// first position by a branchless lower_bound over xs. part: the group's 4K
+// cross-warp words.
+template <int K>
+__device__ __forceinline__ void group_ranks(const uint32_t (&key)[kQnE], uint32_t* xs, int* rr,
+                                            int* part, int wi, int lane, int bar,
+                                            int (&t2)[kQnE]) {
+  constexpr int E = kQnE, N = kQnWarpSlots * K;
+  const int i0 = wi * kQnWarpSlots + lane * E;
+  uint32_t x[E];
+#pragma unroll
+  for (int s = 0; s < E; ++s) x[s] = key[s];
+  group_sort<K>(x, xs, i0, lane, bar);  // ends past the group's last read of xs
+  // the keys before this lane's first position and after its last
+  uint32_t pv = __shfl_up_sync(kFull, x[E - 1], 1);
+  uint32_t nx = __shfl_down_sync(kFull, x[0], 1);
+  if constexpr (K > 1) {
+    uint32_t* edge = reinterpret_cast<uint32_t*>(part);  // [2K]: each warp's first, last
+    if (lane == 0) edge[2 * wi] = x[0];
+    if (lane == 31) edge[2 * wi + 1] = x[E - 1];
+    group_sync<K>(bar);
+    if (lane == 0 && wi > 0) pv = edge[2 * wi - 1];
+    if (lane == 31 && wi < K - 1) nx = edge[2 * wi + 2];
+  }
+  // first[s]: the run's head, by a max-scan of head positions; last[s]: its
+  // tail, by a min-scan from the right
+  int first[E], last[E];
+  int head = -1, tail = N;
+#pragma unroll
+  for (int s = 0; s < E; ++s) {
+    if (i0 + s == 0 || (s ? x[s - 1] : pv) != x[s]) head = i0 + s;
+    first[s] = head;
+  }
+#pragma unroll
+  for (int s = E - 1; s >= 0; --s) {
+    if (i0 + s == N - 1 || (s < E - 1 ? x[s + 1] : nx) != x[s]) tail = i0 + s;
+    last[s] = tail;
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int h = __shfl_up_sync(kFull, head, d), t = __shfl_down_sync(kFull, tail, d);
+    if (lane >= d) head = max(head, h);
+    if (lane + d < 32) tail = min(tail, t);
+  }
+  int carry_h = __shfl_up_sync(kFull, head, 1), carry_t = __shfl_down_sync(kFull, tail, 1);
+  if (lane == 0) carry_h = -1;
+  if (lane == 31) carry_t = N;
+  if constexpr (K > 1) {
+    int* wh = part + 2 * K;  // [K] each warp's last head, [K] its first tail
+    if (lane == 31) wh[wi] = head;
+    if (lane == 0) wh[K + wi] = tail;
+    group_sync<K>(bar);
+    for (int v = 0; v < wi; ++v) carry_h = max(carry_h, wh[v]);
+    for (int v = wi + 1; v < K; ++v) carry_t = min(carry_t, wh[K + v]);
+  }
+#pragma unroll
+  for (int s = 0; s < E; ++s) {
+    xs[i0 + s] = x[s];
+    rr[i0 + s] = (first[s] < 0 ? carry_h : first[s]) + (last[s] == N ? carry_t : last[s]) + 2;
+  }
+  group_sync<K>(bar);
+  // lower_bound of each key: the count of sorted keys below it, in log2 N
+  // steps, the lane's eight loads of a step issued together
+  int pos[E];
+#pragma unroll
+  for (int s = 0; s < E; ++s) pos[s] = 0;
+#pragma unroll
+  for (int half = N / 2; half > 0; half >>= 1) {
+    uint32_t v[E];
+#pragma unroll
+    for (int s = 0; s < E; ++s) v[s] = xs[pos[s] + half - 1];
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < E; ++s) pos[s] += v[s] < key[s] ? half : 0;
+  }
+#pragma unroll
+  for (int s = 0; s < E; ++s) t2[s] = key[s] == kNoValue ? 1 : rr[pos[s]];
+}
+
+// Group 0's five moment sums over its valid slots: its own 2r (t2) and
+// group 1's (rkb, by slot), each mapped by `rank`; each lane its slots in
+// order, then a fixed shuffle tree, then the group's warps in order through
+// red, so the result is deterministic. res[k] = the sum × scale1 for the
+// two first-order sums, × scale2 for the three products, rounded once.
+template <int K, typename Acc, typename F>
+__device__ __forceinline__ void moment_sums(const int (&t2)[kQnE], const bool (&ok)[kQnE],
+                                            const int* rkb, Acc* red, int wi, int lane, int bar,
+                                            F rank, float scale1, float scale2, float* res) {
+  Acc sum[5] = {0, 0, 0, 0, 0};
+#pragma unroll
+  for (int s = 0; s < kQnE; ++s) {
+    if (ok[s]) {
+      const Acc ra = rank(t2[s]), rb = rank(rkb[(wi * kQnE + s) * 32 + lane]);
+      sum[0] += ra;
+      sum[1] += rb;
+      sum[2] += ra * ra;
+      sum[3] += rb * rb;
+      sum[4] += ra * rb;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) sum[k] = repro::warp_sum(sum[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) red[wi * 5 + k] = sum[k];
+  }
+  group_sync<K>(bar);
+  if (wi == 0 && lane < 5) {
+    Acc t = 0;
+    for (int u = 0; u < K; ++u) t += red[u * 5 + lane];
+    res[lane] = static_cast<float>(t) * (lane < 2 ? scale1 : scale2);
+  }
+}
+
+// One row a team of 2K warps: group 0 ranks a, group 1 ranks b, each lane
+// the slots (8w + s)·32 + l of its warp w; group 1 hands its 2r to group 0
+// by slot, and group 0 sums the moments. Team t of block x takes row
+// t·G + x (G blocks): rows that join come in runs (a table's columns join
+// together), and dealt this way a run spreads over many blocks and SMs
+// instead of filling a few blocks.
+template <int K>
+__global__ void __launch_bounds__(64 * K * qn_rows(K))
+rank_moments_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const float* __restrict__ w, int R, int n, int kind,
+                    const float* __restrict__ table, float* __restrict__ out) {
+  constexpr int E = kQnE, P = qn_rows(K), T = 32 * K;  // T: threads a group
+  extern __shared__ unsigned long long rm_smem[];
+  const int nw = (n + 31) / 32;
+  const int team = threadIdx.x / (2 * T);
+  const int half = (threadIdx.x / T) & 1;  // 0: a, 1: b
+  const int wi = (threadIdx.x / 32) % K;   // warp in the group
+  const int lane = threadIdx.x & 31;
+  const int r = team * gridDim.x + blockIdx.x;
+  if (r >= R) return;
+  const int row_bar = 1 + team, bar = 1 + P + 2 * team + half;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(rm_smem) + team * rm_row_words(n, K);
+  uint32_t* xs = bits + (((nw + 1) & ~1)) + half * 2 * kQnWarpSlots * K;  // this group's
+  int* rr = reinterpret_cast<int*>(xs + kQnWarpSlots * K);
+  int* rkb = reinterpret_cast<int*>(bits + (((nw + 1) & ~1)) + 4 * kQnWarpSlots * K);
+  int* part = rkb + kQnWarpSlots * K + half * 4 * K;
+  long long* red = reinterpret_cast<long long*>(rkb + kQnWarpSlots * K + 8 * K);
+  const size_t base = static_cast<size_t>(r) * n;
+  float* o = out + static_cast<size_t>(r) * 6;
+
+  mask_words<K>(w, base, n, nw, bits, half * K + wi, lane);
+  named_sync(row_bar, 2 * T);
+  int m = 0;
+  for (int wd = lane; wd < nw; wd += 32) m += __popc(bits[wd]);
+  m = __reduce_add_sync(kFull, m);
+  if (m == 0) {
+    if (half == 0 && wi == 0 && lane < 6) o[lane] = 0.f;
+    return;
+  }
+  // this group's keys: lane l of warp w takes slots (8w + s)·32 + l, so
+  // each load is one coalesced row segment
+  const float* src = half == 0 ? a : b;
+  float v[E];
+  bool ok[E];
+#pragma unroll
+  for (int s = 0; s < E; ++s) {
+    const int wd = wi * E + s, j = wd * 32 + lane;
+    ok[s] = j < n && (bits[wd] >> lane) & 1u;
+    v[s] = ok[s] ? src[base + j] : 0.f;
+  }
+  uint32_t key[E];
+#pragma unroll
+  for (int s = 0; s < E; ++s) key[s] = rank_key(v[s], ok[s]);
+  int t2[E];
+  group_ranks<K>(key, xs, rr, part, wi, lane, bar, t2);
+  if (half == 1) {
+#pragma unroll
+    for (int s = 0; s < E; ++s) {
+      if (ok[s]) rkb[(wi * E + s) * 32 + lane] = t2[s];
+    }
+  }
+  named_sync(row_bar, 2 * T);
+  if (half == 1) return;
+
+  if (kind == 1) {  // float64 sums of the rankits
+    const float* tab = table + static_cast<size_t>(m) * (2 * n + 1);
+    moment_sums<K, double>(t2, ok, rkb, reinterpret_cast<double*>(red), wi, lane, bar,
+                           [tab](int t) { return static_cast<double>(tab[t]); }, 1.f, 1.f, o + 1);
+  } else {  // exact int64 sums of 2r: Σ2r → Σr, Σ(2r)² → Σr² by a power of two
+    moment_sums<K, long long>(t2, ok, rkb, red, wi, lane, bar,
+                              [](int t) { return static_cast<long long>(t); }, 0.5f, 0.25f, o + 1);
+  }
+  if (wi == 0 && lane == 0) o[0] = static_cast<float>(m);
+}
+
 __global__ void __launch_bounds__(kThreads)
 rank_transform_kernel(const float* __restrict__ x, const float* __restrict__ w, int n,
                       float* __restrict__ out) {
@@ -536,10 +749,15 @@ extern "C" int rank_transform_launch(const void* x, const void* w, int R, int n,
 // table: the rankit table [(n+1)·(2n+1)] for kind 1 (rin), unused for kind 0.
 extern "C" int rank_moments_launch(const void* a, const void* b, const void* w, int R, int n,
                                    int kind, const void* table, void* out, void* stream) {
-  const size_t smem = static_cast<size_t>(n) * (2 * sizeof(float) + 1);
-  rank_moments_kernel<<<R, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int K = n <= kQnWarpSlots ? 1 : n <= 2 * kQnWarpSlots ? 2 : n <= 4 * kQnWarpSlots ? 4 : 8;
+  void (*kernel)(const float*, const float*, const float*, int, int, int, const float*, float*) =
+      K == 1 ? rank_moments_kernel<1> : K == 2 ? rank_moments_kernel<2>
+      : K == 4 ? rank_moments_kernel<4> : rank_moments_kernel<8>;
+  const int P = qn_rows(K);
+  const size_t smem = sizeof(uint32_t) * rm_row_words(n, K) * P;
+  kernel<<<(R + P - 1) / P, 64 * K * P, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(w), n, kind, static_cast<const float*>(table),
+      static_cast<const float*>(w), R, n, kind, static_cast<const float*>(table),
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

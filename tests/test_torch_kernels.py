@@ -74,6 +74,20 @@ def _rank_inputs(rng, R, n):
     return a, b, mask
 
 
+def _zero_rows(rng, R, n):
+    """Rows of signed zeros that must tie: values drawn from {−0.0, +0.0,
+    ±0.5} (a) and {−0.0, +0.0, 1.0} (b); row 0 of a is all zeros of both
+    signs, row 1 of b all equal, row 2 all masked."""
+    a = rng.choice(np.array([-0.0, 0.0, 0.5, -0.5], np.float32), size=(R, n))
+    b = rng.choice(np.array([-0.0, 0.0, 1.0], np.float32), size=(R, n))
+    mask = (rng.random((R, n)) < 0.8).astype(np.float32)
+    a[0] = 0.0
+    a[0, ::2] = -0.0
+    b[1] = 2.0
+    mask[2] = 0.0
+    return a, b, mask
+
+
 def _qn_inputs(rng, case, R, n):
     """Rows for Qn: "random" is `_rank_inputs`; "m2m3" rows of m = 2 and
     m = 3; "ties" rows whose valid a (even rows) or b (odd rows) all tie,
@@ -180,6 +194,19 @@ def test_rank_moments_twin_matches_pallas_interpret(rng, jx):
     want = jx.ops.rank_moments(*(jx.jnp.asarray(x) for x in (a, b, mask)),
                                "spearman", jx.interp)
     _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("kind,tol", [("spearman", 1e-6), ("rin", 2e-5)])
+@pytest.mark.parametrize("n", [16, 64])
+def test_rank_moments_twin_signed_zeros_and_ties(rng, jx, kind, tol, n):
+    """Twin == `ref.rank_moments` where −0.0 and +0.0 tie and whole rows
+    are equal (the kernel ranks by sorted keys, which must tie them too)."""
+    a, b, mask = _zero_rows(rng, 12, n)
+    got = ref.rank_moments(*(torch.from_numpy(x) for x in (a, b, mask)),
+                           kind=kind)
+    want = jx.ref.rank_moments(*(jx.jnp.asarray(x) for x in (a, b, mask)),
+                               kind=kind)
+    _close(got, want, tol)
 
 
 @pytest.mark.parametrize("case,R,n", [("random", 6, 16), ("m2m3", 8, 16),
@@ -386,6 +413,26 @@ def test_flash_split_plan_covers_the_visible_keys(B, Hkv, Lq, Lk, window, sms):
         assert (splits, per) == (32, 64)
 
 
+@pytest.mark.parametrize("B,nq,n", [(1, 64, 64), (32, 256, 256), (33, 256, 256),
+                                    (40, 33, 17), (300, 256, 256), (2, 64, 2048)])
+@pytest.mark.parametrize("C,sms", [(131072, 132), (16384, 132), (1000, 132), (7, 78)])
+def test_containment_plan_covers_rows_and_fits(B, nq, n, C, sms):
+    """The containment kernel's plan: its passes cover every query row
+    once, a block's table and tile fit the card's shared memory, the table
+    is at most half full, and no block is launched without a tile."""
+    p = CT.plan(B, nq, C, sms)
+    starts = range(0, p.passes * p.rows, p.rows)
+    held = [min(p.rows, B - s) for s in starts]
+    assert min(held) >= 1 and sum(held) == B
+    assert 1 <= p.rows <= CT.MAX_ROWS
+    assert p.smem == 12 * 2 ** p.tbits + 4 * p.rows * p.tile <= CT.SMEM_MAX
+    assert p.rows * nq <= 2 ** p.tbits // 2
+    assert CT.MIN_TILE <= p.tile <= CT.TILE
+    assert 1 <= p.grid_x <= min(sms, -(-C // p.tile))
+    if (B, nq, C) == (32, 256, 131072):
+        assert (p.passes, p.tbits, p.grid_x) == (1, 14, sms)
+
+
 # ----------------------------------------------------------------------------
 # CUDA kernels against their twins, on the card
 # ----------------------------------------------------------------------------
@@ -430,6 +477,32 @@ def test_cuda_rank_moments_matches_twin(rng, cuda, kind, tol, R, n):
     a, b, mask = (torch.from_numpy(x).to(cuda) for x in _rank_inputs(rng, R, n))
     got = RT.rank_moments(a, b, mask, kind)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.rank_moments(a, b, mask, kind),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,tol", [("spearman", 1e-6), ("rin", 2e-5)])
+@pytest.mark.parametrize("case,R,n", [("bucket", 4096, 256), ("zeros", 40, 256),
+                                      ("random", 24, 512), ("random", 24, 1000),
+                                      ("mixed", 12, RT.MAX_N), ("zeros", 8, RT.MAX_N)])
+def test_cuda_rank_moments_bucket_and_wide_rows(rng, cuda, kind, tol, case, R, n):
+    """The kernel against its twin (1e-6 spearman, 2e-5 rin), one launch a
+    call: "bucket" is the scan's shape, 4096 rows of which a quarter join
+    in runs of 32; "zeros" rows where −0.0 and +0.0 tie and whole rows are
+    equal; n > 256 takes two, four or eight warps a group."""
+    if case == "bucket":
+        a, b, mask = _rank_inputs(rng, R, n)
+        mask[(np.arange(R) // 32) % 4 != 0] = 0.0
+    elif case == "zeros":
+        a, b, mask = _zero_rows(rng, R, n)
+    else:
+        a, b, mask = _qn_inputs(rng, case, R, n)
+    a, b, mask = (torch.from_numpy(x).to(cuda) for x in (a, b, mask))
+    before = RT.rank_moments.launches
+    got = RT.rank_moments(a, b, mask, kind)
+    torch.cuda.synchronize()
+    assert RT.rank_moments.launches == before + 1
     torch.testing.assert_close(got, ref.rank_moments(a, b, mask, kind),
                                rtol=tol, atol=tol)
 
@@ -497,6 +570,32 @@ def test_cuda_containment_matches_twin(rng, cuda, B, nq, n, C, universe):
     assert got.sum() > 0
     torch.testing.assert_close(got, ref.containment_hits_batched(*args),
                                rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nq,n,C,universe", [
+    (33, 256, 256, 3000, 1 << 16),   # two passes of rows
+    (300, 256, 256, 700, 1 << 16),   # ten passes
+    (3, 64, CT.MAX_N, 200, 3000),    # the widest candidates
+    (5, 128, 128, 40, 50),           # C below the SM count; keys repeat on both sides
+    (7, 33, 30, 9, 12)])             # n % 4 != 0: scalar loads
+def test_cuda_containment_passes_and_edge_keys(rng, cuda, B, nq, n, C, universe):
+    """Exactly the twin, one launch a call, with the key 0xFFFFFFFF valid
+    and repeated in query 0 and candidate 0 (4 × 3 pairs), key 0 valid,
+    and small universes repeating keys inside rows and candidates."""
+    qk, qm, ck, cm = (x.numpy().copy() for x in _containment_inputs(rng, B, nq, n, C,
+                                                                     universe))
+    qk[0, :4] = ck[0, :3] = -1          # 0xFFFFFFFF as an int32 pattern
+    qk[-1, -2:] = ck[-1, :2] = 0
+    qm[0, :4] = cm[0, :3] = qm[-1, -2:] = cm[-1, :2] = 1.0
+    args = [torch.from_numpy(x).to(cuda) for x in (qk, qm, ck, cm)]
+    before = CT.containment_hits_batched.launches
+    got = CT.containment_hits_batched(*args)
+    torch.cuda.synchronize()
+    assert CT.containment_hits_batched.launches == before + 1
+    want = ref.containment_hits_batched(*args)
+    assert torch.equal(got, want)
+    assert int(got[0, 0]) >= 12 and int(got[-1, -1]) >= 4
 
 
 def _window_ids(rng, B, L, ids, empty=0.5):

@@ -145,6 +145,21 @@ def test_containment_twin_matches_reference(rng, B, nq, n, C, universe):
     assert got.sum() > 0
 
 
+@pytest.mark.parametrize("B,nq,n,C", [(4, 48, 40, 12), (3, 33, 30, 9)])
+def test_containment_twin_repeats_and_extreme_keys(rng, B, nq, n, C):
+    """Twin == `ref.containment_hits_batched`, exactly, with keys repeated
+    inside query rows and inside candidates (a universe of 20 keys) and
+    the keys 0 and 0xFFFFFFFF valid: every equal valid pair counts."""
+    qk, qm, ck, cm = _containment_inputs(rng, B, nq, n, C, 20)
+    qk[0, :5] = ck[0, :4] = 0xFFFFFFFF
+    qk[1, :3] = ck[2, :3] = 0
+    qm[0, :5] = cm[0, :4] = qm[1, :3] = cm[2, :3] = 1.0
+    got = ref.containment_hits_batched(*_torch_args(qk, qm, ck, cm))
+    want = JR.containment_hits_batched(*(jnp.asarray(x) for x in (qk, qm, ck, cm)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[0, 0] >= 20 and got[1, 2] >= 9
+
+
 def test_containment_twin_matches_pallas_interpret(rng):
     """Twin == the Pallas kernel body (interpret mode), batched by vmap, at
     `tests/test_two_stage.py`'s shape."""

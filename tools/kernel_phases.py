@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where a launch of the port's sketch-join and split-key attention kernels
-spends its time, phase by phase, on one CUDA card.
+"""Where a launch of the port's sketch-join, split-key attention and
+rank_moments kernels spends its time, phase by phase, on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
-``python3 tools/kernel_phases.py``. It copies ``csrc/sketch_join.cu`` and
-``csrc/flash_attention.cu``, puts a ``%globaltimer`` stamp (thread 0 of
-each block, 32 ns ticks) at fixed anchor lines of each kernel, builds the
+``python3 tools/kernel_phases.py``. It copies ``csrc/sketch_join.cu``,
+``csrc/flash_attention.cu`` and ``csrc/rank_transform.cu``, puts a
+``%globaltimer`` stamp (thread 0 of each block, or of each row's team in
+rank_moments; 32 ns ticks) at fixed anchor lines of each kernel, builds the
 copies with the port's nvcc flags into ``src/repro_torch/_build/phases/``
 and launches them through ctypes at the main path's shapes:
 
@@ -15,6 +16,10 @@ and launches them through ctypes at the main path's shapes:
                        × 512 candidates; n = nq = 256, aligned/hit written
   flash_fwd_split      q [4, 32, 1, 64] f32 over a [4, 4, 2048, 64] bf16
                        cache (the LM path's decode)
+  rank_moments         4096 rows of n = 256 (the scan's bucket), a quarter
+                       of them joined in runs of 32 with m in [64, 256],
+                       spearman; the phases after the mask are the joined
+                       rows' only
 
 For each it prints one ``phases <kernel> {json}`` line: per phase the median
 and largest time over the blocks and the blocks that reached it (µs), the
@@ -48,6 +53,13 @@ __device__ __forceinline__ void stamp(int k) {
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     const size_t blk = blockIdx.x + (size_t)gridDim.x * (blockIdx.y + (size_t)gridDim.y * blockIdx.z);
     g_ts[blk * 8 + k] = t;
+  }
+}
+__device__ __forceinline__ void stamp_at(size_t slot, int k) {
+  if (g_ts != nullptr) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_ts[slot * 8 + k] = t;
   }
 }
 '''
@@ -88,6 +100,32 @@ SPLIT = [
      "partial store, fence, done-counter"),
     ("  if (tid == 0) done[bh] = 0;  // ready for the next launch on the stream\n",
      "  if (tid == 0) done[bh] = 0;\n  stamp(7);\n", "combine (last blocks)"),
+]
+
+#: rank_moments: stamps by thread 0 of each row's team (slot: 4 a block)
+_TEAM = "  if (threadIdx.x % (64 * K) == 0) stamp_at(blockIdx.x * 4 + threadIdx.x / (64 * K), {});\n"
+RANK = [
+    ("  uint32_t* bits = reinterpret_cast<uint32_t*>(rm_smem) + team * rm_row_words(n, K);\n",
+     _TEAM.format(0) + "  uint32_t* bits = reinterpret_cast<uint32_t*>(rm_smem) + team * rm_row_words(n, K);\n",
+     None),
+    ("  m = __reduce_add_sync(kFull, m);\n", "  m = __reduce_add_sync(kFull, m);\n" + _TEAM.format(1),
+     "mask + barrier"),
+    ("  int t2[E];\n  group_ranks<K>(", _TEAM.format(2) + "  int t2[E];\n  group_ranks<K>(",
+     "a/b loads + keys"),
+    ("  group_sort<K>(x, xs, i0, lane, bar);  // ends past the group's last read of xs\n",
+     "  group_sort<K>(x, xs, i0, lane, bar);\n" + _TEAM.format(3), "sort"),
+    ("#pragma unroll\n  for (int s = 0; s < E; ++s) {\n    xs[i0 + s] = x[s];\n",
+     _TEAM.format(4) + "#pragma unroll\n  for (int s = 0; s < E; ++s) {\n    xs[i0 + s] = x[s];\n",
+     "runs (flags + scans)"),
+    ("  for (int s = 0; s < E; ++s) t2[s] = key[s] == kNoValue ? 1 : rr[pos[s]];\n",
+     "  for (int s = 0; s < E; ++s) t2[s] = key[s] == kNoValue ? 1 : rr[pos[s]];\n" + _TEAM.format(5),
+     "sorted keys out + lower_bound"),
+    ("  named_sync(row_bar, 2 * T);\n  if (half == 1) return;\n",
+     "  named_sync(row_bar, 2 * T);\n" + _TEAM.format(6) + "  if (half == 1) return;\n",
+     "2r handoff + row barrier"),
+    ("  if (wi == 0 && lane == 0) o[0] = static_cast<float>(m);\n}\n",
+     "  if (wi == 0 && lane == 0) o[0] = static_cast<float>(m);\n" + _TEAM.format(7) + "}\n",
+     "moment sums + store"),
 ]
 
 
@@ -152,7 +190,8 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     builds = {"": instrument("sketch_join", JOIN), "q0": instrument("sketch_join", JOIN, "_q0", ("-DQ0",)),
-              "split": instrument("flash_attention", SPLIT)}
+              "split": instrument("flash_attention", SPLIT),
+              "rank": instrument("rank_transform", RANK)}
     if any(p.wait() for p, _ in builds.values()):
         raise SystemExit("kernel_phases: nvcc failed")
     libs = {k: ctypes.CDLL(str(lib)) for k, (_, lib) in builds.items()}
@@ -200,6 +239,21 @@ def main() -> None:
     row.update(q=list(q.shape), cache=list(k.shape), splits=splits, split_keys=per,
                events_ms=event_ms(launch))
     print("phases flash_fwd_split " + json.dumps(row), flush=True)
+
+    f = libs["rank"].rank_moments_launch
+    f.argtypes, f.restype = [P, P, P, I, I, I, P, P, P], I
+    R, n = 4096, 256
+    a = torch.randn(R, n, device=dev, generator=g)
+    b = 0.6 * a + torch.randn(R, n, device=dev, generator=g)
+    m = torch.randint(64, n + 1, (R, 1), device=dev, generator=g)
+    w = (torch.rand(R, n, device=dev, generator=g).argsort(-1) < m).float()
+    w[(torch.arange(R, device=dev) // 32) % 4 != 0] = 0.0
+    out = torch.empty(R, 6, device=dev)
+    launch = lambda: f(a.data_ptr(), b.data_ptr(), w.data_ptr(), R, n, 0, None, out.data_ptr(),
+                       stream())
+    row = phases(libs["rank"], launch, R, RANK)
+    row.update(rows=R, n=n, joined_rows=int((w.sum(-1) > 0).sum()), events_ms=event_ms(launch))
+    print("phases rank_moments " + json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":
