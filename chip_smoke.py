@@ -61,14 +61,18 @@ fatal on failure (exit code 1, no result line):
                 candidates, the 8- and 1-query buckets against all C, and
                 the 32-query bucket against one delta segment's 16384
                 columns; hits exactly equal), postings_merge (the
-                bucket's real postings windows at the corpus's W; the
-                (id, count) sets of every row equal) and postings_select
+                bucket's real postings windows at the corpus's W, and the
+                same rows folded into C = 131071, 45 and 1 with an id at
+                C − 1, a row of −1 and a row of one id; cols and counts
+                bit-equal, and the counts equal to the containment hits)
+                and postings_select
                 (the merge output at the base rung, which overflows, and at
                 the covering rung, and at C = 131071, 1000 and 1 with an
                 eligible id at C − 1; surv, valid and n_surv bit-equal),
                 each against its twin, timed beside the twin, its bound and
-                — for postings_select, also by ``torch.profiler`` —
-                ``torch.unique``.
+                — for both postings kernels, also by ``torch.profiler`` —
+                one ``torch.unique`` call (for the merge, of row·C + id over
+                the live slots, with the counts).
   7. two-stage — with every launch count at 0, two servers on the same
                 index, ``candidates="scan"`` and ``"auto"`` (= inverted at
                 this C), warm every prune mode and serve the 64 planted
@@ -133,8 +137,10 @@ fatal on failure (exit code 1, no result line):
                 stop the scheduler's results equal direct calls.
   11. flash_attention — the kernel against its twin (2e-3 with a float32
                 output, 2e-2 with bfloat16: the reference sweep's
-                tolerances) at the LM path's prefill shape (q [4, 32, 2016,
-                64] f32, k/v [4, 4, 2016, 64] f32, causal) and decode shape
+                tolerances; 1e-4 at the prefill shape, where the split-TF32
+                tensor-core path must keep float32 accuracy) at the LM
+                path's prefill shape (q [4, 32, 2016, 64] f32, k/v [4, 4,
+                2016, 64] f32, causal) and decode shape
                 (q [4, 32, 1, 64] f32 over a [4, 4, 2048, 64] bf16 cache), the
                 reference sweep's five cases, hymba's 25-over-5 heads at L =
                 2048 with window 1024 and without, ragged edges (Lq = Lk
@@ -142,7 +148,9 @@ fatal on failure (exit code 1, no result line):
                 0) and more shapes of the split-key decode kernel (2017
                 keys, hymba's decode with window 1024, 4 positions × 4
                 heads with window 16); timed at both path shapes beside its
-                twin and its bound,
+                twin and its bound (at prefill the tensor-core route's: three
+                TF32 products a float32 product at the TF32 rate, with the
+                float32 CUDA-core bound beside it),
                 by CUDA events and ``torch.profiler``, and beside one
                 ``scaled_dot_product_attention`` call (a yardstick, never on
                 the path; at the decode shape on the cache cast to float32
@@ -177,6 +185,7 @@ line ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -284,10 +293,18 @@ FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 FLASH_KERNEL = "flash_fwd"
 #: the sketch join's other launch shapes: the one- and 8-query buckets
 JOIN_BUCKETS = (1, 8)
-#: H100 SXM data-sheet peaks: HBM bytes/s and
-#: float32 operations/s outside the tensor cores
+#: H100 SXM data-sheet peaks: HBM bytes/s, float32 operations/s outside
+#: the tensor cores, and dense TF32 tensor-core operations/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+TF32_OPS_S = 495e12
+#: flash_fwd's split TF32: three TF32 products for each float32 product
+SPLIT_TF32_PRODUCTS = 3
+#: the attention kernel against its twin at the LM path's float32 prefill
+#: shape (split TF32 keeps float32 accuracy; one TF32 product misses ~1e-3)
+PREFILL_TOL = 1e-4
+#: postings_merge's edge cases: C (the path's rows folded into [0, C))
+MERGE_EDGES = (131071, 45, 1)
 
 
 def fail(msg: str) -> None:
@@ -349,10 +366,11 @@ def profiled_ms(fn, reps: int, name: str, tries: int = 3):
     return None
 
 
-def bound_ms(nbytes: float, nops: float):
+def bound_ms(nbytes: float, nops: float, ops_s: float = FP32_OPS_S):
     """Least time for the work: the larger of bytes over the memory rate
-    and operations over the float32 rate."""
-    tb, to = nbytes / HBM_BYTES_S, nops / FP32_OPS_S
+    and operations over the route's rate (float32 CUDA cores unless
+    ``ops_s`` says otherwise)."""
+    tb, to = nbytes / HBM_BYTES_S, nops / ops_s
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -942,24 +960,46 @@ def phase_stage1_kernels(index, keys, vals, dev):
     cand = PL.postings_window_candidates(q_kh, q_mask, src.keys, src.cols,
                                          src.W)
     L = cand.shape[1]
-    mc, mn = PM.postings_merge(cand)
-    wc, wn = ref.postings_merge(cand)
+    mc, mn = merge(PM.postings_merge, cand, C)
+    wc, wn = merge(ref.postings_merge, cand, C)
     torch.cuda.synchronize()
+    if not (torch.equal(mc, wc) and torch.equal(mn, wn)):
+        fail("postings_merge kernel differs from its twin")
     dense = lambda c, k: CD.dense_hit_counts(c.cpu().numpy(), k.cpu().numpy(), C)
-    if not (np.array_equal(dense(mc, mn), dense(wc, wn))
-            and torch.equal((mc >= 0).sum(-1), (wc >= 0).sum(-1))):
-        fail("postings_merge kernel: a row's (id, count) set differs from the twin's")
     if not np.array_equal(dense(mc, mn), got.cpu().numpy()):
         fail("postings_merge counts differ from the containment hits")
+    # edge cases: the same rows with ids folded into [0, Ce), Ce − 1 in row
+    # 0, a row of −1 only and a row of Ce − 1 repeated L times
+    for Ce in MERGE_EDGES:
+        ce = torch.where(cand >= 0, cand % Ce, -1)
+        ce[0, :3], ce[1], ce[2] = Ce - 1, -1, Ce - 1
+        g, w = merge(PM.postings_merge, ce, Ce), merge(ref.postings_merge, ce, Ce)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(g, w)):
+            fail(f"postings_merge kernel differs from its twin at C={Ce}")
+    # the library yardstick: one torch.unique of (row, id) keys of the live
+    # slots, built outside the timed window; it must give the merge's pairs
+    keys = (torch.arange(B, device=dev, dtype=torch.int64)[:, None] * C + cand)[cand >= 0]
+    uniq = lambda: torch.unique(keys, sorted=True, return_counts=True)
+    uk, uc = uniq()
+    live = mc >= 0
+    rows_ = torch.arange(B, device=dev, dtype=torch.int64)[:, None].expand(B, L)
+    if not (torch.equal(uk, (rows_ * C + mc)[live]) and torch.equal(uc.float(), mn[live])):
+        fail("torch.unique (the merge's yardstick) differs from the merge")
+    kern = lambda: merge(PM.postings_merge, cand, C)
     rows["postings_merge"] = dict(
         source="src/repro_torch/csrc/postings.cu",
         replaces="src/repro/kernels/postings.py:173",
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: PM.postings_merge(cand), 50),
-        plain_ms=cuda_ms(lambda: ref.postings_merge(cand), 10),
-        library_ms=None,
-        # a comparison sort of every row
-        work=(B * L * 12, float(B * L * math.log2(L))))
+        ms=cuda_ms(kern, 50),
+        # the merge's own kernels (not the memset of its scratch)
+        device_ms=profiled_ms(kern, 20, "postings_merge"),
+        plain_ms=cuda_ms(lambda: merge(ref.postings_merge, cand, C), 10),
+        library_ms=cuda_ms(uniq, 50),
+        library="torch.unique(row * C + id, sorted=True, return_counts=True) over the "
+                "live slots, keys built outside the timed window",
+        # the ids in, cols and counts out; one bitmap mark a slot
+        work=(B * L * 12, float(B * L)))
 
     floor = float(PL.request_operands(PL.Request())[3])
     n_surv = int(ref.postings_select(mc, mn, floor, 1)[2])
@@ -1000,7 +1040,8 @@ def phase_stage1_kernels(index, keys, vals, dev):
     say(f"stage-1 kernels: B={B} nq={nq} C={C} n={n} E={src.E} W={src.W} "
         f"L={L} n_surv={n_surv} rungs=({base}, {rung}); containment_hits also at "
         f"B = {', '.join(str(b) for b in JOIN_BUCKETS)} and against {LIVE_CAP} columns; "
-        f"postings_select also at (C, M) = {list(SELECT_EDGES)} — each matches its twin")
+        f"postings_merge bit-equal also at C = {list(MERGE_EDGES)}; postings_select also at "
+        f"(C, M) = {list(SELECT_EDGES)} — each matches its twin")
     return rows
 
 
@@ -1591,6 +1632,13 @@ def phase_scheduler(index, groups, keys, vals, dev):
 # the LM substrate: flash_attention, and tinyllama-1.1b served on the card
 # ----------------------------------------------------------------------------
 
+def merge(fn, cand, C):
+    """``fn(cand, C)``: the postings merge (kernel or twin), or ``fn(cand)``
+    on a tree whose merge takes no C (a ``--speed`` parent before the
+    bitmap kernel)."""
+    return fn(cand, C) if "C" in inspect.signature(fn).parameters else fn(cand)
+
+
 def _flash_args(rng, dev, B, Hq, Hkv, Lq, Lk, D, qdt=torch.float32, kvdt=torch.float32):
     """q [B, Hq, Lq, D] and k, v [B, Hkv, Lk, D] of normal values, drawn on
     the card from ``rng`` (a torch.Generator)."""
@@ -1631,7 +1679,7 @@ def phase_flash(dev):
     timed at the LM path's prefill and decode shapes beside the twin, its
     bound and one PyTorch SDPA call."""
     rng = torch.Generator(device=dev).manual_seed(SEED)
-    worst = 0.0
+    worst = prefill_err = 0.0
     for what, shape, causal, window, qdt, kvdt in _flash_cases():
         q, k, v = _flash_args(rng, dev, *shape, qdt=qdt, kvdt=kvdt)
         got = FA.flash_attention(q, k, v, causal=causal, window=window)
@@ -1639,8 +1687,13 @@ def phase_flash(dev):
         torch.cuda.synchronize()
         if got.dtype != q.dtype or got.shape != q.shape:
             fail(f"flash_attention ({what}): {got.dtype} {tuple(got.shape)}")
-        worst = max(worst, check_close(f"flash_attention kernel ({what})", [got.float()],
-                                       [want.float()], FLASH_TOL[qdt]))
+        err = check_close(f"flash_attention kernel ({what})", [got.float()],
+                          [want.float()], FLASH_TOL[qdt])
+        worst = max(worst, err)
+        if what == "prefill":
+            prefill_err = err
+            if not err <= PREFILL_TOL:
+                fail(f"flash_attention kernel (prefill): max |diff| {err} > {PREFILL_TOL}")
         if what == "Lq > Lk" and not bool((got[:, :, :16] == 0).all()):
             fail("flash_attention: rows with no key left are not 0")
         del got, want
@@ -1649,16 +1702,22 @@ def phase_flash(dev):
     kern = lambda: FA.flash_attention(q, k, v, causal=True)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True)
+    # q, k, v in and o out once; 2·D multiply-adds for each (query, key)
+    # pair the causal mask keeps, each as SPLIT_TF32_PRODUCTS TF32 products
+    # on the tensor cores; the float32 CUDA-core bound of the same work
+    # beside it
+    nbytes, nops = 4 * (2 * q.numel() + 2 * k.numel()), 4.0 * B * Hq * D * S * (S + 1) / 2
     row = dict(source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:89", max_abs_err=worst,
+               prefill_max_abs_err=prefill_err,
                ms=cuda_ms(kern, 10),
                device_ms=profiled_ms(kern, 5, FLASH_KERNEL),
                plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v), 3, warm=1),
                library_ms=cuda_ms(sdpa, 10),
-               # q, k, v in and o out once; 2·D multiply-adds for each
-               # (query, key) pair the causal mask keeps
-               work=(4 * (2 * q.numel() + 2 * k.numel()),
-                     4.0 * B * Hq * D * S * (S + 1) / 2))
+               bound_route=f"TF32 tensor cores, {SPLIT_TF32_PRODUCTS} products a float32 "
+                           "product (split TF32)",
+               fp32_bound_ms=bound_ms(nbytes, nops)[0],
+               work=(nbytes, SPLIT_TF32_PRODUCTS * nops, TF32_OPS_S))
     check_close("SDPA (the library yardstick)", [sdpa()], [kern()], FLASH_TOL[q.dtype])
     del q, k, v
     _, _, _, _, W, _ = _flash_cases()[1][1]
@@ -1681,7 +1740,8 @@ def phase_flash(dev):
         f"decode, the reference sweep, hymba's 25/5 heads with window 1024 and "
         f"without, Lq = Lk = 37, Lq = 1, Lq > Lk, decode over 2017 keys, hymba's "
         f"decode with window 1024, 4 positions × 4 heads) — each matches its twin (max "
-        f"|diff| {worst}); prefill {row['ms']:.4f} ms events, {row['device_ms']} ms "
+        f"|diff| {worst}; prefill {prefill_err}); prefill {row['ms']:.4f} ms events, "
+        f"{row['device_ms']} ms "
         f"device, twin {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
         f"decode {row['decode']['ms']:.4f} ms events, {row['decode']['device_ms']} ms device, "
         f"SDPA on the f32-cast cache {row['decode']['library_ms']:.4f} ms")
@@ -1878,9 +1938,9 @@ def speed(parent: str) -> None:
     order parent, change, change, parent; each side's output goes to
     ``speed<i>_<side>.log`` beside ``DIR`` and its numbers to a ``speed``
     JSON line here: the sketch join, attention, rank_moments, rank_transform,
-    Qn and containment rows, and the `off` dispatch (also by estimator), the
-    scan-source `safe`/`topm` dispatch, live-index call, library, scheduler
-    and LM decode times."""
+    Qn, containment and postings rows, and the `off` dispatch (also by
+    estimator), the scan-source `safe`/`topm` dispatch, live-index call,
+    library, scheduler and LM decode times."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     if not os.path.isdir(os.path.join(parent, "src", "repro_torch")):
@@ -1990,13 +2050,16 @@ def main(argv) -> None:
             k: dict({f: v for f, v in r.items() if f != "work"},
                     bound_ms=bound_ms(*r["work"])[0])
             for k, r in rows.items()
-            if k.startswith(("sketch_join", "flash", "rank_", "containment", "qn"))}))
+            if k.startswith(("sketch_join", "flash", "rank_", "containment", "qn",
+                             "postings"))}))
         return
     rows = timed("hash_build", phase_hash_build, groups, dev)
     rows.update(timed("kernels", phase_kernels, index, buckets, keys, vals, dev))
     rows.update(timed("rank_transform", phase_rank_transform, index, keys, vals, dev))
-    launches = timed("slice", phase_slice, index, keys, vals, best, dev)
+    # before the slice phase: after its long profiles, the postings rows'
+    # sessions (the most records, memsets included) have come back incomplete
     rows.update(timed("stage1_kernels", phase_stage1_kernels, index, keys, vals, dev))
+    launches = timed("slice", phase_slice, index, keys, vals, best, dev)
     launches.update({k: v for k, v in timed("two_stage", phase_two_stage, index,
                                             keys, vals, dev).items()
                      if k in STAGE1_KERNELS})

@@ -1,8 +1,7 @@
 // Helpers shared by the port's kernels: a warp's deterministic sum (a
 // fixed shuffle tree — no atomics, so a result never depends on
 // scheduling), an exclusive prefix sum over the block of one int per
-// thread, and a bitonic sort of a power-of-two array in shared (or the
-// block's own global) memory.
+// thread, and the next power of two.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,29 +43,6 @@ __device__ inline int block_exclusive_scan(int x, int* scratch, int* total) {
   __syncthreads();
   *total = scratch[nwarps - 1];
   return incl - x + (warp > 0 ? scratch[warp - 1] : 0);
-}
-
-// Ascending bitonic sort of keys[0..np2) (np2 a power of two). Ends with
-// a barrier.
-template <typename K>
-__device__ void bitonic_sort(K* keys, int np2) {
-  for (int k = 2; k <= np2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < np2; i += blockDim.x) {
-        const int p = i ^ j;
-        if (p > i) {
-          const bool up = (i & k) == 0;
-          const K a = keys[i], b = keys[p];
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[p] = a;
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
 }
 
 inline int next_pow2(int n) {

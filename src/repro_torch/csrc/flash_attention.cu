@@ -14,25 +14,45 @@
 // Two kernels; the caller's split count picks one (kernels/flash_attention.py
 // asks for splits when a (batch, KV head) has at most kDecRows query rows).
 //
-// flash_fwd, for many rows (simple and right first; tensor cores, TMA and
-// warp specialisation are later work):
-//  - one block of 256 threads per (batch, KV head, 64-row tile), where a
-//    row is a (query position, query head of the group) pair: the group's
-//    query heads share every K/V tile the block stages;
-//  - a loop over 64-key tiles: K (transposed) and V staged through shared
-//    memory in f32, whatever their storage type (bf16 → f32 is exact), the
-//    loop bounded to the keys the causal and window masks leave to the
-//    tile's rows, and the ragged tails (any Lq, any Lk) masked;
-//  - each thread owns 4 rows × 4 keys of the logits and 4 rows × D/16
-//    dims of the accumulator, all f32 in registers, with the online
-//    softmax (running max, sum and accumulator) reduced across the 16
-//    threads of a row by shuffles; P goes through shared memory (over the
-//    K tile) into the P·V product;
-//  - strided [B, H, L, D] views with a contiguous last dimension, so the
-//    caller's [B, L, H, D] projections need no transposed copy.
+// flash_fwd, for many rows: both products on the tensor cores, at float32
+// accuracy. The path is float32 end to end, and one TF32 product (10
+// mantissa bits) misses the float32 reference by ~2e-3, so every product
+// is split TF32 ("3xTF32"): x = hi + lo with hi x rounded to TF32 and lo
+// the remainder, and a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, three
+// mma.sync.m16n8k8 TF32 products accumulated in f32 (~1e-6 from a float64
+// computation). A bf16 operand is a TF32 value, so its low part is 0 and
+// its terms are skipped: one product a step in Q·Kᵀ when q and k/v are
+// both bf16. Its bound is then the TF32 tensor rate over three times the
+// products' operations. The design:
+//  - one block of 8 warps per (batch, KV head, 128-row tile), where a row
+//    is a (query position, query head of the group) pair, so one staged
+//    K/V tile serves every query head of the group; a warp owns 16 rows;
+//  - a flat grid that issues the row tiles last in the sequence first, so
+//    the heaviest causal tiles start first and the light ones fill the tail;
+//  - K and V in a two-stage ring of 64-key f32 tiles, the next tile's
+//    16-byte cp.async copies in flight while one is computed (bf16 or
+//    unaligned K/V are widened by the threads instead); K rows padded to
+//    D + 16 floats and V rows to D + 4, so every fragment read is free of
+//    bank conflicts; keys past Lk are zero-filled;
+//  - Q's fragments in registers for the whole key loop, read as 16-byte
+//    rows with the k index t ↔ dim 4t mapping (both operands permuted
+//    alike), split as they are used; K's and V's split as they are read;
+//  - the online softmax on the accumulator fragments: a row's max over the
+//    4 lanes of a quad, ex2.approx with log2(e) folded into the scale, the
+//    sum kept per lane until the end; masks only on the tiles that cut a row
+//    (the diagonal, the window's edge, a ragged tail), and only the tiles
+//    some row of the block sees are visited;
+//  - P stays in registers between the products: its accumulator fragment
+//    is the A fragment of P·V once the keys of a k-step are taken in the
+//    order 2t, 2t + 1, which V's fragment reads follow.
+// What holds it at the LM prefill shape is the rate of mma.sync's TF32
+// products, about a third of the dense TF32 peak: splitting K and V once a
+// block instead of once a warp, or twice the resident warps, did not move
+// it (PERF.md §6). wgmma (TF32 wants both operands K-major in shared
+// memory, so V transposed) is the step past it.
 //
 // flash_fwd_split, for few rows (decode: Lq = 1, a group of 8 heads), where
-// flash_fwd's grid is B·Hkv blocks that each walk the whole cache:
+// flash_fwd's grid is a few blocks that each walk the whole cache:
 //  - the visible keys are cut into `splits` runs of `split_keys` (a multiple
 //    of the 64-key tile); the grid is (split, KV head, batch), so a decode
 //    step over a 2048-key cache with B·Hkv = 16 is 512 blocks, not 16;
@@ -47,20 +67,17 @@
 //    done-counter after __threadfence, which that block sets back to 0,
 //    so no call needs a memset — combines the partials in split order, so
 //    the result does not depend on which block finishes last.
-// Products are explicit fmaf: the library is built with -fmad=false, which
-// bars only the compiler's own contraction of a multiply and an add.
+// Its products are explicit fmaf: the library is built with -fmad=false,
+// which bars only the compiler's own contraction of a multiply and an add.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
-constexpr int kRows = 64;      // query rows of a block
-constexpr int kKeys = 64;      // keys of a tile
-constexpr int kThreads = 256;  // 16 row groups × 16 column groups
-constexpr int kPad = 4;        // floats after each shared row (keeps 16 B alignment)
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
@@ -71,165 +88,307 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
-template <int D>
-constexpr int smem_floats() {
-  return D * (kRows + kPad)                             // Q, transposed
-         + (D > kKeys ? D : kKeys) * (kKeys + kPad)     // K transposed, then P transposed
-         + kKeys * (D + kPad);                          // V
+// four elements of a staged row → f32
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+}
+// four consecutive elements in device memory → f32; `vec`: 16-byte aligned
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, bool vec) {
+  if (vec) return widen4(p);
+  return make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
 }
 
-template <int D, typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
-          TQ* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int group, int Lq,
-          int Lk, int causal, int window, float scale) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DPT = D / 16;  // accumulator dims of a thread
-  constexpr int QS = kRows + kPad, KS = kKeys + kPad, VS = D + kPad;
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);      // [D][QS]
-  float* Kt = Qt + D * QS;                          // [D][KS]; P as [kKeys][QS]
-  float* Pt = Kt;
-  float* Vs = Kt + (D > kKeys ? D : kKeys) * KS;    // [kKeys][VS]
+// ---------------------------------------------------------------------------
+// flash_fwd: tensor cores, split TF32
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int hkv = blockIdx.y, b = blockIdx.z;
-  const int R = Lq * group, row0 = blockIdx.x * kRows;
-  const int off = Lk - Lq;
+constexpr int kWarps = 8;              // warps of a block, 16 rows each
+constexpr int kRows = 16 * kWarps;     // query rows of a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKeys = 64;              // keys of a tile
 
-  // the Q tile, transposed: rows are (position, head of the group) pairs
-  for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D, rho = row0 + r;
-    float x = 0.f;
-    if (rho < R) {
-      const int i = rho / group, h = hkv * group + rho % group;
-      x = to_f32(q[b * sq.b + h * sq.h + i * sq.l + d]);
-    }
-    Qt[d * QS + r] = x;
+template <int D>
+struct FwdSmem {
+  static constexpr int KS = D + 16;                  // floats of a staged K row
+  static constexpr int VS = D + 4;                   // of a staged V row
+  static constexpr int STAGE = kKeys * (KS + VS);    // floats of a ring stage
+  static constexpr int BYTES = 2 * STAGE * static_cast<int>(sizeof(float));
+};
+
+template <typename T>
+constexpr bool kTf32Exact = std::is_same<T, __nv_bfloat16>::value;  // 8-bit mantissa
+
+// x ≈ hi + lo, both TF32 values (lo is 0 for a TF32 type). The tensor
+// cores read a TF32 operand's top 19 bits and drop the low 13, so hi is
+// x + half a TF32 ulp (an integer add: round to nearest, ties away) and lo
+// the exact float32 remainder x − tf32(hi), truncated by the tensor cores
+// (the split of CUTLASS's 3xTF32, OpMultiplyAddFastF32)
+template <bool EXACT>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (EXACT) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = __float_as_uint(x) + 0x1000u;
+    lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
   }
+}
+
+// 2^x by the special-function unit (relative error below 2^-22; −inf → 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b over one k-step, split TF32: the small terms first, those whose
+// low part is 0 by type skipped
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  if constexpr (!A_EXACT) mma_tf32(d, al, bh0, bh1);
+  if constexpr (!B_EXACT) mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Keys k0 .. k0 + 63 of K and V into a ring stage, as f32 rows of KS and VS
+// floats; keys past Lk are 0. `vec`: both tensors 16-byte aligned with
+// 16-byte row strides — f32 then goes by cp.async (in flight until the
+// caller waits), bf16 by 8-byte loads widened in registers.
+template <int D, typename TKV>
+__device__ __forceinline__ void stage_kv(float* Ks, float* Vs, const TKV* kb, const TKV* vb,
+                                         long long kld, long long vld, int k0, int Lk,
+                                         bool vec) {
+  constexpr int KS = FwdSmem<D>::KS, VS = FwdSmem<D>::VS, CPR = D / 4;
+  for (int e = threadIdx.x; e < kKeys * CPR; e += kThreads) {
+    const int c = e / CPR, x = e - c * CPR, kp = k0 + c;
+    float* kd = Ks + c * KS + 4 * x;
+    float* vd = Vs + c * VS + 4 * x;
+    const bool in = kp < Lk;
+    if constexpr (std::is_same<TKV, float>::value) {
+      if (vec) {
+        cp_async16(kd, in ? kb + kp * kld + 4 * x : kb, in ? 16 : 0);
+        cp_async16(vd, in ? vb + kp * vld + 4 * x : vb, in ? 16 : 0);
+        continue;
+      }
+    }
+    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+    if (in) {
+      kx = load4(kb + kp * kld + 4 * x, vec);
+      vx = load4(vb + kp * vld + 4 * x, vec);
+    }
+    *reinterpret_cast<float4*>(kd) = kx;
+    *reinterpret_cast<float4*>(vd) = vx;
+  }
+}
+
+// Fragment layouts of mma.m16n8k8 (g = lane / 4, t = lane % 4): A a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g), b1
+// (k t + 4, n g); C c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8,
+// 2t + 1). In Q·Kᵀ the k index t of k-step 2i (2i + 1) is dim 16i + 4t (+ 2)
+// and t + 4 the next dim, so a lane reads 4 dims of a Q or K row at once.
+// In P·V the k index t of k-step j is key 8j + 2t and t + 4 key 8j + 2t + 1:
+// the keys of Q·Kᵀ's C fragment c0, c1 (c2, c3), so a = (c0, c2, c1, c3).
+template <int D, typename TQ, typename TKV>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
+          TQ* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int Hkv, int group,
+          int Lq, int Lk, int causal, int window, float scale_log2, int ntiles, int qvec,
+          int kvvec) {
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  constexpr int KS = FwdSmem<D>::KS, VS = FwdSmem<D>::VS, STAGE = FwdSmem<D>::STAGE;
+  constexpr int DI = D / 16, DN = D / 8;
+  constexpr bool QX = kTf32Exact<TQ>, KX = kTf32Exact<TKV>;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int nbh = gridDim.x / ntiles;
+  const int tile = ntiles - 1 - static_cast<int>(blockIdx.x) / nbh;
+  const int bh = static_cast<int>(blockIdx.x) - (ntiles - 1 - tile) * nbh;
+  const int hkv = bh % Hkv, b = bh / Hkv;
+  const int R = Lq * group, off = Lk - Lq, row0 = tile * kRows;
 
   // the keys any row of the tile may see
-  const int last = (row0 + kRows < R ? row0 + kRows : R) - 1;
+  const int last = min(row0 + kRows, R) - 1;
   const int qpos_lo = row0 / group + off, qpos_hi = last / group + off;
   int kbeg = 0, kend = Lk;
   if (causal && qpos_hi + 1 < kend) kend = qpos_hi + 1;
   if (window > 0 && qpos_lo - window + 1 > kbeg) kbeg = qpos_lo - window + 1;
-
-  // this thread's rows and their positions
-  int qpos[4];
-  bool live[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rho = row0 + rg * 4 + i;
-    live[i] = rho < R;
-    qpos[i] = rho / group + off;
-  }
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-  }
+  const int nt = kend > kbeg ? (kend - kbeg + kKeys - 1) / kKeys : 0;
 
   const TKV* kb = k + b * sk.b + hkv * sk.h;
   const TKV* vb = v + b * sv.b + hkv * sv.h;
-  for (int k0 = kbeg; k0 < kend; k0 += kKeys) {
-    __syncthreads();  // the previous tile's P and V are read; Q is written
-    for (int idx = tid; idx < kKeys * D; idx += kThreads) {
-      const int c = idx / D, d = idx % D, kp = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (kp < Lk) {
-        kx = to_f32(kb[kp * sk.l + d]);
-        vx = to_f32(vb[kp * sv.l + d]);
-      }
-      Kt[d * KS + c] = kx;
-      Vs[c * VS + d] = vx;
+  if (nt > 0) stage_kv<D>(ring, ring + kKeys * KS, kb, vb, sk.l, sv.l, kbeg, Lk, kvvec);
+  cp_async_commit();
+
+  // this lane's rows g and g + 8 of the warp's 16: positions and Q
+  int qpos[2];
+  float4 qf[DI][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rho = row0 + warp * 16 + g + 8 * h;
+    qpos[h] = rho / group + off;
+    const TQ* qr = q + b * sq.b + (hkv * group + rho % group) * sq.h + (rho / group) * sq.l + 4 * t;
+#pragma unroll
+    for (int i = 0; i < DI; ++i)
+      qf[i][h] = rho < R ? load4(qr + 16 * i, qvec) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  float acc[DN][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < nt; ++it) {
+    const int k0 = kbeg + it * kKeys;
+    const float* Ks = ring + (it & 1) * STAGE;
+    const float* Vs = Ks + kKeys * KS;
+    if (it + 1 < nt) {
+      float* Kn = ring + ((it + 1) & 1) * STAGE;
+      stage_kv<D>(Kn, Kn + kKeys * KS, kb, vb, sk.l, sv.l, k0 + kKeys, Lk, kvvec);
     }
+    cp_async_commit();
+    cp_async_wait1();  // this tile's copies have landed
     __syncthreads();
 
-    // logits of 4 rows × 4 keys
-    float s[4][4];
+    // S = Q·Kᵀ: 16 rows × 64 keys a warp, 8 column tiles of 8 keys
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(Qt + d * QS + rg * 4);
-      const float4 ka = *reinterpret_cast<const float4*>(Kt + d * KS + cg * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w}, kv[4] = {ka.x, ka.y, ka.z, ka.w};
+    for (int i = 0; i < DI; ++i) {
+      uint32_t ah[2][4], al[2][4];
+      split_tf32<QX>(qf[i][0].x, ah[0][0], al[0][0]);
+      split_tf32<QX>(qf[i][1].x, ah[0][1], al[0][1]);
+      split_tf32<QX>(qf[i][0].y, ah[0][2], al[0][2]);
+      split_tf32<QX>(qf[i][1].y, ah[0][3], al[0][3]);
+      split_tf32<QX>(qf[i][0].z, ah[1][0], al[1][0]);
+      split_tf32<QX>(qf[i][1].z, ah[1][1], al[1][1]);
+      split_tf32<QX>(qf[i][0].w, ah[1][2], al[1][2]);
+      split_tf32<QX>(qf[i][1].w, ah[1][3], al[1][3]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        const float4 kx = *reinterpret_cast<const float4*>(Ks + (8 * j + g) * KS + 16 * i + 4 * t);
+        uint32_t bh[4], bl[4];
+        split_tf32<KX>(kx.x, bh[0], bl[0]);
+        split_tf32<KX>(kx.y, bh[1], bl[1]);
+        split_tf32<KX>(kx.z, bh[2], bl[2]);
+        split_tf32<KX>(kx.w, bh[3], bl[3]);
+        mma3<QX, KX>(s[j], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+        mma3<QX, KX>(s[j], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+      }
     }
 
-    // masks, then the online softmax over the 16 threads of each row
-    float p[4][4];
+    // the online softmax in base 2; masks only where a key is cut from a row
+    const bool whole = k0 + kKeys <= Lk && (!causal || k0 + kKeys - 1 <= qpos_lo) &&
+                       (window <= 0 || k0 > qpos_hi - window);
+    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool keep[4];
-      float mt = kNegInf;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + cg * 4 + j;
-        keep[j] = live[i] && kp < kend && (!causal || kp <= qpos[i]) &&
-                  (window <= 0 || kp > qpos[i] - window);
-        s[i][j] = keep[j] ? s[i][j] * scale : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (!whole) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1), qp = qpos[e >> 1];
+          const bool keep =
+              kp < Lk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+          x = keep ? x : -INFINITY;
+        }
+        s[j][e] = x;
+        mt[e >> 1] = fmaxf(mt[e >> 1], x);
       }
+    float base[2], alpha[2];
 #pragma unroll
-      for (int w = 1; w < 16; w <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, w));
-      const float mnew = fmaxf(m[i], mt);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = keep[j] ? __expf(s[i][j] - mnew) : 0.f;
-        rs += p[i][j];
-      }
-#pragma unroll
-      for (int w = 1; w < 16; w <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      const float alpha = __expf(m[i] - mnew);
-      l[i] = l[i] * alpha + rs;
-      m[i] = mnew;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
+    for (int h = 0; h < 2; ++h) {
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float mn = fmaxf(m[h], mt[h]);
+      base[h] = mn == -INFINITY ? 0.f : mn;  // a row with no key yet: every p is 0
+      alpha[h] = exp2_approx(m[h] - base[h]);
+      m[h] = mn;
+      l[h] *= alpha[h];
     }
-    __syncthreads();  // every thread is done with the K tile: P goes over it
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(Pt + (cg * 4 + j) * QS + rg * 4) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    __syncthreads();
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx(s[j][e] - base[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
 
-    // acc += P · V: 4 rows × DPT dims of this thread
-#pragma unroll 4
-    for (int c = 0; c < kKeys; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(Pt + c * QS + rg * 4);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float* vr = Vs + c * VS + cg * DPT;
-      float vv[DPT];
+    // acc += P·V: k-step j is S's column tile j
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = vr[j];
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ph[4], pl[4];
+      split_tf32<false>(s[j][0], ph[0], pl[0]);
+      split_tf32<false>(s[j][2], ph[1], pl[1]);
+      split_tf32<false>(s[j][1], ph[2], pl[2]);
+      split_tf32<false>(s[j][3], ph[3], pl[3]);
+      const float* v0 = Vs + (8 * j + 2 * t) * VS + g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int n = 0; n < DN; ++n) {
+        uint32_t bh0, bh1, bl0, bl1;
+        split_tf32<KX>(v0[8 * n], bh0, bl0);
+        split_tf32<KX>(v0[VS + 8 * n], bh1, bl1);
+        mma3<false, KX>(acc[n], ph, pl, bh0, bh1, bl0, bl1);
+      }
     }
+    __syncthreads();  // every warp is done with this stage: the next copy may reuse it
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!live[i]) continue;
-    const int rho = row0 + rg * 4 + i;
-    const int pos = rho / group, h = hkv * group + rho % group;
-    TQ* out = o + b * so.b + h * so.h + pos * so.l + cg * DPT;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) store(out + j, acc[i][j] * inv);
+  for (int h = 0; h < 2; ++h) {
+    const int rho = row0 + warp * 16 + g + 8 * h;
+    if (rho >= R) continue;
+    TQ* out = o + b * so.b + (hkv * group + rho % group) * so.h + (rho / group) * so.l + 2 * t;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      store(out + 8 * n, acc[n][2 * h] * inv);
+      store(out + 8 * n + 1, acc[n][2 * h + 1] * inv);
+    }
   }
 }
 
@@ -241,8 +400,6 @@ constexpr int kDecRows = 16;                // query rows of a (batch, KV head) 
 constexpr int kDecKeys = 64;                // keys of a tile
 constexpr int kDecThreads = 2 * kDecKeys;   // two threads a key in the logits
 
-__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 // 16 bytes of a staged row → f32
 __device__ __forceinline__ void widen16(const float* p, float (&x)[4]) {
@@ -262,14 +419,6 @@ __device__ __forceinline__ void widen16(const __nv_bfloat16* p, float (&x)[8]) {
   x[5] = bf_hi(u.z);
   x[6] = bf_lo(u.w);
   x[7] = bf_hi(u.w);
-}
-// four elements of a staged row → f32
-__device__ __forceinline__ float4 widen4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
 }
 
 template <int D, typename TKV>
@@ -598,15 +747,21 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, const lon
     return static_cast<int>(cudaGetLastError());
   }
   auto kern = flash_fwd<D, TQ, TKV>;
-  const size_t bytes = sizeof(float) * smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  constexpr int bytes = FwdSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(Lq) * group;
-  const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), Hkv, B);
-  kern<<<grid, kThreads, bytes, stream>>>(
+  const long long ntiles = (static_cast<long long>(Lq) * group + kRows - 1) / kRows;
+  if (ntiles * Hkv * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bool qvec = aligned16(q), kvvec = aligned16(k) && aligned16(v);
+  for (int j = 0; j < 3; ++j) qvec = qvec && (st[j] * static_cast<long long>(sizeof(TQ))) % 16 == 0;
+  for (int j = 3; j < 9; ++j)
+    kvvec = kvvec && (st[j] * static_cast<long long>(sizeof(TKV))) % 16 == 0;
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(D)));
+  kern<<<static_cast<unsigned>(ntiles * Hkv * B), kThreads, bytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<TQ*>(o), sq, sk, sv, so, group, Lq, Lk, causal, window, scale);
+      static_cast<TQ*>(o), sq, sk, sv, so, Hkv, group, Lq, Lk, causal, window, scale_log2,
+      static_cast<int>(ntiles), qvec, kvvec);
   return static_cast<int>(cudaGetLastError());
 }
 

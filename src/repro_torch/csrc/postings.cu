@@ -18,19 +18,31 @@
 // What bounds them on an H100: bytes, and at the engine's sizes they are
 // latency-bound (a few MB at most). Both Pallas kernels build O(L²) or
 // O(N²) pairwise equality tiles in VMEM, which is the wrong shape here.
+// Ids are column ids in [0, C), so neither kernel sorts: each marks ids in
+// a bitmap of ⌈C/32⌉ words (16 KB at C = 131072) and compacts it.
 //
-// Merge design: one block per row sorts the row (a bitonic network; −1
-// becomes INT32_MAX and sorts last) in dynamic shared memory when it fits
-// (the wrapper opts in above 48 KB), else in a global-memory scratch row the
-// wrapper allocates — so every L the window ladder can give launches. Each
-// thread then owns a contiguous span of the sorted row, counts the run
-// heads in it, and a block prefix sum gives every head its compacted slot;
-// a head's count is its run length.
+// Merge design (two kernels after one memset of the row bitmaps and the
+// rows' done-counters; 512 KB at B = 32, C = 131072, which stays in L2):
+//  - flag: a block per (row, tile of 4096 slots), 16 coalesced loads a
+//    thread in flight; each warp ORs its live ids into the row's bitmap
+//    with one atomicOr per distinct word (a query's ids cluster: one table's
+//    columns share a word). The last block of a row (a done-counter after
+//    __threadfence) compacts the row's bitmap: 4 words a thread, __popc,
+//    a block exclusive scan a tile of words, the prefix of every word kept,
+//    and the row's distinct ids written ascending (__ffs) with count 0;
+//  - count: the same blocks read the row again; a live id's slot is its
+//    word's prefix plus the set bits below it in the word, and the lanes of
+//    a warp holding one id (__match_any_sync) add their number to its count
+//    with one atomicAdd — integer counts below 2^24 are exact in f32 in any
+//    order, so the result equals the twin's bit for bit; slots past the
+//    row's distinct ids get (−1, 0).
+// Ids outside [0, C) are ignored, so no write leaves the scratch. Above
+// the bytes bound sit each row's compaction, which one block runs after
+// the row's flags are in, and the wrapper's host cost (PERF.md §6).
 //
-// Select design: ids are column ids in [0, C), so no sort is needed. One
-// kernel marks each eligible id in a bitmap of ⌈C/32⌉ words (atomicOr;
-// 16 KB at C = 131072) with coalesced grid-stride reads of the N slots,
-// 4 a thread in flight, reading a slot's count only when its id is live.
+// Select design: one kernel marks each eligible id in a bitmap of ⌈C/32⌉
+// words (atomicOr) with coalesced grid-stride reads of the N slots, 4 a
+// thread in flight, reading a slot's count only when its id is live.
 // The last block to finish (a done-counter after __threadfence) compacts
 // the bitmap: tiles of 4096 words, 4 consecutive words a thread read as
 // one 16-byte load, __popc counts, one block exclusive scan a tile, and
@@ -39,58 +51,132 @@
 // scan a 131072 columns on a single SM (latency). The bitmap and counter
 // are zeroed by one memset before the launch.
 #include <algorithm>
-#include <climits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMergeThreads = 1024;
+constexpr int kMergeThreads = 256;
+constexpr int kMergePer = 16;                          // slots a thread has in flight
+constexpr int kMergeTile = kMergeThreads * kMergePer;  // slots of a (row, tile) block
 constexpr int kSelectThreads = 1024;
 constexpr int kSelectPer = 4;  // slots a thread has in flight in the flag pass
 // the flag pass's largest grid: two blocks an SM of an H100 (132 SMs), a
 // constant so a launch makes no device query on the host
 constexpr long long kSelectMaxGrid = 264;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool run_head(const int32_t* s, int i) {
-  return s[i] != INT_MAX && (i == 0 || s[i - 1] != s[i]);
+// The merge's scratch, in words: bitmaps [B][Wp] and done-counters [B]
+// (zeroed by the memset), then distinct-id totals [B] and word prefixes
+// [B][Wp]; Wp = ⌈C/32⌉ rounded up to 4 words, so a row's words load as uint4.
+struct MergeScratch {
+  uint32_t* bitmap;
+  uint32_t* done;
+  int32_t* total;
+  int32_t* prefix;
+  int Wp;
+};
+
+// this thread's kMergePer slots of the block's (row, tile): coalesced, all
+// loads issued before any is used; slots past L are −1
+__device__ __forceinline__ void merge_slots(const int32_t* __restrict__ row, int L, int base,
+                                            int32_t (&id)[kMergePer]) {
+#pragma unroll
+  for (int k = 0; k < kMergePer; ++k) {
+    const int s = base + k * kMergeThreads;
+    id[k] = s < L ? row[s] : -1;
+  }
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
-postings_merge_kernel(const int32_t* __restrict__ cand, int L, int np2, int32_t* scratch,
-                      int32_t* __restrict__ cols, float* __restrict__ counts) {
-  extern __shared__ int32_t smem[];
-  __shared__ int scan_scratch[repro::kMaxWarps];
-  const size_t row = static_cast<size_t>(blockIdx.x);
-  int32_t* s = scratch != nullptr ? scratch + row * np2 : smem;
-  const int32_t* in = cand + row * L;
-  for (int i = threadIdx.x; i < np2; i += blockDim.x) {
-    const int32_t v = i < L ? in[i] : -1;
-    s[i] = v < 0 ? INT_MAX : v;
-  }
-  repro::bitonic_sort(s, np2);
-
-  const int per = (np2 + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, np2);
-  const int hi = min(lo + per, np2);
-  int heads = 0;
-  for (int i = lo; i < hi; ++i) heads += run_head(s, i);
-  int total = 0;
-  int pos = repro::block_exclusive_scan(heads, scan_scratch, &total);
-  int32_t* out_c = cols + row * L;
-  float* out_n = counts + row * L;
-  for (int i = lo; i < hi; ++i) {
-    if (run_head(s, i)) {
-      int e = i + 1;
-      while (e < np2 && s[e] == s[i]) ++e;
-      out_c[pos] = s[i];
-      out_n[pos] = static_cast<float>(e - i);
-      ++pos;
+postings_merge_flag(const int32_t* __restrict__ cand, int L, int C, MergeScratch sc,
+                    int32_t* __restrict__ cols, float* __restrict__ counts) {
+  const size_t row = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  uint32_t* bm = sc.bitmap + row * sc.Wp;
+  int32_t id[kMergePer];
+  merge_slots(cand + row * L, L, blockIdx.x * kMergeTile + threadIdx.x, id);
+#pragma unroll
+  for (int k = 0; k < kMergePer; ++k) {
+    const bool live = id[k] >= 0 && id[k] < C;
+    const int w = live ? id[k] >> 5 : -1;
+    // one atomicOr per distinct word of the warp's live ids
+    for (unsigned todo = __ballot_sync(kFull, live); todo != 0u;) {
+      const int src = __ffs(todo) - 1;
+      const int ws = __shfl_sync(kFull, w, src);
+      const bool mine = live && w == ws;
+      const unsigned bits = __reduce_or_sync(kFull, mine ? 1u << (id[k] & 31) : 0u);
+      if (lane == src) atomicOr(bm + ws, bits);
+      todo &= ~__ballot_sync(kFull, mine);
     }
   }
-  for (int i = total + threadIdx.x; i < L; i += blockDim.x) {
-    out_c[i] = -1;
-    out_n[i] = 0.f;
+  __threadfence();
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(sc.done + row, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the row's compaction, 4 words a thread a tile
+  __shared__ int scan_scratch[repro::kMaxWarps];
+  int32_t* pre = sc.prefix + row * sc.Wp;
+  int32_t* out_c = cols + row * L;
+  float* out_n = counts + row * L;
+  int done = 0;  // distinct ids in the tiles before this one
+  for (int t0 = 0; t0 < sc.Wp; t0 += 4 * kMergeThreads) {
+    const int w0 = t0 + 4 * static_cast<int>(threadIdx.x);
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (w0 < sc.Wp) {
+      const uint4 q = __ldcg(reinterpret_cast<const uint4*>(bm + w0));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    }
+    const int mine = __popc(v[0]) + __popc(v[1]) + __popc(v[2]) + __popc(v[3]);
+    int total = 0;
+    int pos = done + repro::block_exclusive_scan(mine, scan_scratch, &total);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (w0 + j >= sc.Wp) break;
+      pre[w0 + j] = pos;
+      for (uint32_t word = v[j]; word != 0u; word &= word - 1u) {
+        out_c[pos] = (w0 + j) * 32 + __ffs(word) - 1;
+        out_n[pos++] = 0.f;
+      }
+    }
+    done += total;
+  }
+  if (threadIdx.x == 0) sc.total[row] = done;
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+postings_merge_count(const int32_t* __restrict__ cand, int L, int C, MergeScratch sc,
+                     int32_t* __restrict__ cols, float* __restrict__ counts) {
+  const size_t row = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const uint32_t* bm = sc.bitmap + row * sc.Wp;
+  const int32_t* pre = sc.prefix + row * sc.Wp;
+  const int n = sc.total[row];
+  int32_t* out_c = cols + row * L;
+  float* out_n = counts + row * L;
+  const int base = blockIdx.x * kMergeTile + threadIdx.x;
+  int32_t id[kMergePer];
+  merge_slots(cand + row * L, L, base, id);
+#pragma unroll
+  for (int k = 0; k < kMergePer; ++k) {
+    const bool live = id[k] >= 0 && id[k] < C;
+    int slot = 0;
+    if (live) {
+      const int w = id[k] >> 5;
+      slot = pre[w] + __popc(bm[w] & ((1u << (id[k] & 31)) - 1u));
+    }
+    const unsigned peers = __match_any_sync(kFull, live ? id[k] : -1);
+    if (live && lane == __ffs(peers) - 1)
+      atomicAdd(out_n + slot, static_cast<float>(__popc(peers)));
+    const int s = base + k * kMergeThreads;
+    if (s < L && s >= n) {
+      out_c[s] = -1;
+      out_n[s] = 0.f;
+    }
   }
 }
 
@@ -154,21 +240,30 @@ postings_select_kernel(const int32_t* __restrict__ cols, const float* __restrict
 
 }  // namespace
 
-// Merges B rows of L ids. `scratch` is null to sort in dynamic shared memory
-// (np2 ints a block), or B·np2 ints of device memory. Returns
-// cudaGetLastError() after the launch.
-extern "C" int postings_merge_launch(const void* cand, int B, int L, int np2, void* scratch,
+// Merges B rows of L ids in [0, C) (others are ignored); `scratch` is
+// 2·B·Wp + 2·B words of device memory, Wp = ⌈C/32⌉ rounded up to a multiple
+// of 4. Returns cudaGetLastError() after the launches.
+extern "C" int postings_merge_launch(const void* cand, int B, int L, int C, void* scratch,
                                      void* cols, void* counts, void* stream) {
-  const size_t smem = scratch != nullptr ? 0 : static_cast<size_t>(np2) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        postings_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  postings_merge_kernel<<<B, kMergeThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cand), L, np2, static_cast<int32_t*>(scratch),
-      static_cast<int32_t*>(cols), static_cast<float*>(counts));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MergeScratch sc;
+  sc.Wp = ((C + 31) / 32 + 3) & ~3;
+  sc.bitmap = static_cast<uint32_t*>(scratch);
+  sc.done = sc.bitmap + static_cast<size_t>(B) * sc.Wp;
+  sc.total = reinterpret_cast<int32_t*>(sc.done + B);
+  sc.prefix = sc.total + B;
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(uint32_t) * (static_cast<size_t>(B) * sc.Wp + B), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + kMergeTile - 1) / kMergeTile, B);
+  postings_merge_flag<<<grid, kMergeThreads, 0, st>>>(static_cast<const int32_t*>(cand), L, C,
+                                                      sc, static_cast<int32_t*>(cols),
+                                                      static_cast<float*>(counts));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  postings_merge_count<<<grid, kMergeThreads, 0, st>>>(static_cast<const int32_t*>(cand), L, C,
+                                                       sc, static_cast<int32_t*>(cols),
+                                                       static_cast<float*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -96,7 +96,7 @@ class InvertedSource:
         """Device (cols, counts) ``[B, n·W]`` of the postings probe."""
         cand = PL.postings_window_candidates(q_kh, q_mask, self.keys,
                                              self.cols, self.W)
-        return K.postings_merge(cand)
+        return K.postings_merge(cand, self.C)
 
     def hit_counts(self, qa) -> np.ndarray:
         cols, counts = self.merged(qa[0], qa[2])

@@ -340,7 +340,7 @@ def inverted(q_kh, q_val, q_mask, q_cmin, q_cmax, shard: IndexShard, keys,
         raise ValueError(f"rung {M} is below k_max={shape.k_max}")
     est, scorer, alpha, floor = _unpack(ops)
     cand = postings_window_candidates(q_kh, q_mask, keys, cols, W)
-    mcols, mcnt = K.postings_merge(cand)
+    mcols, mcnt = K.postings_merge(cand, shard.num_columns)
     surv, valid, n_surv = K.postings_select(mcols, mcnt, floor, M,
                                             shard.num_columns)
     r, m, ci_len = survivor_stats(q_kh, q_val, q_mask, q_cmin, q_cmax, shard,

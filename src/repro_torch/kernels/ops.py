@@ -107,11 +107,12 @@ def containment_hits_batched(q_kh, q_mask, c_kh, c_mask):
     return impl(q_kh, q_mask, c_kh, c_mask)
 
 
-def postings_merge(cand):
-    """Per row of gathered window ids ``cand`` i32[B, L]: each distinct id
-    once with its count → (cols i32[B, L], counts f32[B, L])."""
+def postings_merge(cand, C: int):
+    """Per row of gathered window ids ``cand`` i32[B, L] (ids in [0, C)):
+    each distinct id once with its count → (cols i32[B, L], counts
+    f32[B, L])."""
     impl = _pm.postings_merge if _on_cuda(cand) else _ref.postings_merge
-    return impl(cand)
+    return impl(cand, C)
 
 
 def postings_select(cols, counts, floor, M: int, C: int):

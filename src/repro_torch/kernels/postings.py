@@ -10,16 +10,13 @@ postings_merge` / `postings_select`, which both kernels equal bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.sketch_join import check
-
-#: dynamic shared memory a merge block sorts its row in (opted in above
-#: 48 KB; the card allows 227 KB); longer rows sort in a global scratch row
-MERGE_SMEM_BYTES = 128 * 1024
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C signatures
@@ -29,7 +26,9 @@ _ARGTYPES = {
 }
 
 
+@functools.cache
 def _fn(name: str):
+    """The library's launcher ``name``, typed once."""
     f = getattr(build.library("postings"), name)
     f.argtypes = _ARGTYPES[name]
     f.restype = _I
@@ -40,26 +39,29 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def postings_merge(cand):
-    """Launch the merge: ``cand`` i32[B, L] → (cols i32[B, L], counts
-    f32[B, L]), each row's distinct ids ascending at the front with their
-    counts, then (−1, 0)."""
+def postings_merge(cand, C: int):
+    """Launch the merge: ``cand`` i32[B, L] of ids in [0, C) (−1 in empty
+    slots) → (cols i32[B, L], counts f32[B, L]), each row's distinct ids
+    ascending at the front with their counts, then (−1, 0)."""
     dev = cand.device
     if dev.type != "cuda":
         raise ValueError(f"the postings_merge kernel runs on CUDA, not {dev}")
     B, L = cand.shape
     check(cand, "cand", torch.int32, (B, L), dev)
+    C = int(C)
+    if C < 0 or B > 65535:
+        raise ValueError(f"column count C={C} must be ≥ 0 and rows B={B} at most 65535")
     cols = torch.empty((B, L), dtype=torch.int32, device=dev)
     counts = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return cols, counts
-    np2 = 1 << (L - 1).bit_length()
-    scratch = (None if np2 * 4 <= MERGE_SMEM_BYTES else
-               torch.empty((B, np2), dtype=torch.int32, device=dev))
+    # per row: the id bitmap and a done-counter, the distinct-id total and
+    # the bitmap words' prefix counts (csrc/postings.cu's MergeScratch)
+    words = ((C + 31) // 32 + 3) // 4 * 4
+    scratch = torch.empty((2 * B * words + 2 * B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _fn("postings_merge_launch")(
-            cand.data_ptr(), B, L, np2,
-            None if scratch is None else scratch.data_ptr(),
+            cand.data_ptr(), B, L, C, scratch.data_ptr(),
             cols.data_ptr(), counts.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"postings_merge kernel launch failed: CUDA error {err}")

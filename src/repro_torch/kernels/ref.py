@@ -353,13 +353,17 @@ def qn_correlation(a, b, mask):
 _I32_MAX = int(np.iinfo(np.int32).max)
 
 
-def postings_merge(cand):
+def postings_merge(cand, C: int):
     """Merge the column ids gathered from postings windows (``cand`` i32
-    ``[B, L]``, −1 in non-matching slots) into per-column hit counts:
-    ``(cols i32[B, L], counts f32[B, L])`` with each row's distinct ids
-    ≥ 0 ascending at the front, each with its multiplicity (the exact
-    key-intersection size), then (−1, 0). The reference's contract is set
-    equality per row; this layout is also the CUDA kernel's."""
+    ``[B, L]``, ids in [0, C), −1 in non-matching slots) into per-column
+    hit counts: ``(cols i32[B, L], counts f32[B, L])`` with each row's
+    distinct ids ≥ 0 ascending at the front, each with its multiplicity
+    (the exact key-intersection size), then (−1, 0). The reference's
+    contract is set equality per row; this layout is also the CUDA
+    kernel's. ``C`` bounds the ids (checked; the kernel marks them in a
+    C-bit bitmap a row) and does not change the result."""
+    if bool((cand >= int(C)).any()):
+        raise ValueError(f"postings_merge: an id is ≥ the column count C={int(C)}")
     B, L = cand.shape
     s = torch.sort(torch.where(cand < 0, _I32_MAX, cand), dim=-1).values
     head = torch.ones_like(s, dtype=torch.bool)

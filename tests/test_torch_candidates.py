@@ -61,13 +61,11 @@ def _merged(rng, B, L, ids):
 # postings merge
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,L,ids", [(1, 64, 12), (4, 256, 12), (7, 192, 40),
-                                     (2, 96, 1)])
-def test_postings_merge_twin_matches_reference(rng, B, L, ids):
-    """Twin == `ref.postings_merge` and the Pallas body as (id, count) sets
-    per row, and its layout is ids ascending at the front."""
-    cand = _cand(rng, B, L, ids)
-    cols, counts = ref.postings_merge(torch.from_numpy(cand))
+def _merge_matches_reference(cand, C):
+    """`ops.postings_merge(cand, C)` on the CPU (the twin) == `ref.
+    postings_merge` and the Pallas body as (id, count) sets per row, its
+    layout ids ascending at the front; returns the per-row sets."""
+    cols, counts = ops.postings_merge(torch.from_numpy(cand), C)
     got = _pairs(cols, counts)
     assert got == _pairs(*JR.postings_merge(jnp.asarray(cand)))
     assert got == _pairs(*JK.postings_merge(jnp.asarray(cand), INTERP))
@@ -75,6 +73,42 @@ def test_postings_merge_twin_matches_reference(rng, B, L, ids):
         k = len(row)
         assert cols[i, :k].tolist() == sorted(c for c, _ in row)
         assert (cols[i, k:] == -1).all()
+    return got
+
+
+@pytest.mark.parametrize("B,L,ids", [(1, 64, 12), (4, 256, 12), (7, 192, 40),
+                                     (2, 96, 1)])
+def test_postings_merge_twin_matches_reference(rng, B, L, ids):
+    """Twin == `ref.postings_merge` and the Pallas body, ids in [0, C = ids)."""
+    _merge_matches_reference(_cand(rng, B, L, ids), ids)
+
+
+@pytest.mark.parametrize("B,L,C", [(3, 128, 45), (2, 96, 1), (4, 200, 64), (2, 160, 33)])
+def test_postings_merge_edges_match_reference(rng, B, L, C):
+    """Ids that reach C − 1 (C not a multiple of 32, C = 1, C = 32·k + 1),
+    a row of −1 only and a row of one id repeated L times: the twin ==
+    the JAX reference and the Pallas body."""
+    cand = _cand(rng, B, L, C)
+    cand[0, :2] = C - 1
+    cand[1] = -1
+    if B > 2:
+        cand[2] = C // 2
+    got = _merge_matches_reference(cand, C)
+    assert (C - 1, float((cand[0] == C - 1).sum())) in got[0]
+    assert got[1] == set()
+    if B > 2:
+        assert got[2] == {(C // 2, float(L))}
+
+
+def test_postings_merge_twin_refuses_ids_past_C(rng):
+    """The twin checks the bound the kernel's bitmap relies on."""
+    cand = torch.from_numpy(_cand(rng, 2, 64, 10))
+    cand[1, 5] = 10
+    with pytest.raises(ValueError):
+        ref.postings_merge(cand, 10)
+    with pytest.raises(ValueError):
+        ops.postings_merge(cand, 10)
+    assert ref.postings_merge(cand, 11)[1].sum() == (cand >= 0).sum()
 
 
 # ----------------------------------------------------------------------------
@@ -125,7 +159,7 @@ def test_select_over_merge_equals_host_selection(rng):
     """Device select over merged rows == host `select_survivors` over their
     dense scatter (`dense_hit_counts`), as in the reference."""
     cand = torch.from_numpy(_cand(rng, 3, 128, 20, empty=0.6))
-    mcols, mcnt = ops.postings_merge(cand)
+    mcols, mcnt = ops.postings_merge(cand, 20)
     surv, valid, _ = ops.postings_select(mcols, mcnt, 2.0, 32, 20)
     hits = TCD.dense_hit_counts(mcols.numpy(), mcnt.numpy(), 20)
     np.testing.assert_array_equal(hits, JCD.dense_hit_counts(
@@ -137,7 +171,7 @@ def test_select_over_merge_equals_host_selection(rng):
 def test_postings_wrappers_refuse_cpu_tensors(rng):
     cand = torch.from_numpy(_cand(rng, 2, 16, 5))
     with pytest.raises(ValueError):
-        TP.postings_merge(cand)
+        TP.postings_merge(cand, 5)
     with pytest.raises(ValueError):
         TP.postings_select(cand, cand.float(), 1.0, 4, 5)
 
@@ -204,7 +238,7 @@ def test_window_probe_on_reference_postings(rng):
     cand = TPL.postings_window_candidates(
         torch.from_numpy(qk.view(np.int32).copy()), torch.from_numpy(qm),
         tp.keys, tp.cols, W)
-    got = TCD.dense_hit_counts(*(x.numpy() for x in ops.postings_merge(cand)),
+    got = TCD.dense_hit_counts(*(x.numpy() for x in ops.postings_merge(cand, kh.shape[0])),
                                kh.shape[0])
     np.testing.assert_array_equal(got, want)
     # and the scan's exact counts over the same planes

@@ -605,21 +605,34 @@ def _window_ids(rng, B, L, ids, empty=0.5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,ids", [
-    (1, 64, 12), (7, 192, 40), (32, 8192, 4096),
-    (4, 20000, 5000),       # past 48 KB of shared memory: opted in
-    (2, 2048 * 64, 70000),  # past the shared-memory sort: global scratch
-    (3, 1, 3)])
-def test_cuda_postings_merge_matches_twin(rng, cuda, B, L, ids):
+@pytest.mark.parametrize("B,L,ids,C,edge", [
+    (1, 64, 12, 12, None), (7, 192, 40, 40, None), (32, 8192, 4096, 4096, None),
+    (4, 20000, 5000, 5000, None), (2, 2048 * 64, 70000, 70000, None), (3, 1, 3, 3, None),
+    (32, 256 * 128, 131072, 131072, None),  # the inverted source's rows: n·W at C
+    (4, 300, 1, 1, None),                   # C = 1
+    (5, 1000, 45, 45, "top"),               # C not a multiple of 32, id C − 1
+    (6, 4096, 200, 200, "empty"),           # a row of −1 only
+    (3, 5000, 300, 300, "repeat"),          # one id repeated L times
+    (2, 131072, 1 << 22, 1 << 22, "top")])  # 512 KB a row: many compaction tiles
+def test_cuda_postings_merge_matches_twin(rng, cuda, B, L, ids, C, edge):
     """Bit-equal: the kernel writes the twin's layout (ids ascending at the
-    front, then (−1, 0))."""
-    cand = _window_ids(rng, B, L, ids).to(cuda)
+    front, then (−1, 0)), ids in [0, C)."""
+    cand = _window_ids(rng, B, L, ids)
+    if edge == "top":
+        cand[0, :3] = C - 1
+    elif edge == "empty":
+        cand[1] = -1
+    elif edge == "repeat":
+        cand[2] = ids - 1
+    cand = cand.to(cuda)
     before = PM.postings_merge.launches
-    got = PM.postings_merge(cand)
+    got = PM.postings_merge(cand, C)
     torch.cuda.synchronize()
     assert PM.postings_merge.launches == before + 1
-    for g, w in zip(got, ref.postings_merge(cand)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    want = ref.postings_merge(cand, C)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if edge == "repeat":
+        assert int(got[0][2, 0]) == ids - 1 and float(got[1][2, 0]) == L
 
 
 @pytest.mark.gpu
@@ -637,7 +650,7 @@ def test_cuda_postings_select_matches_twin(rng, cuda, B, L, M, floor, C, top):
     floor 0 and an empty selection included. Rows are merge outputs; with
     ``top`` ids are drawn from all of [0, C) and C − 1 is eligible."""
     ids = C if top else min(C, 4 * L)
-    cols, counts = ref.postings_merge(_window_ids(rng, B, L, ids))
+    cols, counts = ref.postings_merge(_window_ids(rng, B, L, ids), C)
     counts = torch.where(cols >= 0, torch.from_numpy(
         rng.integers(1, 5, size=(B, L)).astype(np.float32)), 0.0)
     if top:
@@ -723,11 +736,22 @@ def test_cuda_hash_build_matches_twin(rng, cuda, shape, offset):
     (2, 25, 5, 1, 2048, 64, True, 0, "float32", "bfloat16"),  # hymba's heads
     (2, 25, 5, 1, 2048, 64, True, 1024, "float32", "float32"),
     (1, 12, 4, 1, 333, 96, False, 0, "bfloat16", "float32"),
+] + [
+    # the tensor-core path: a prefill row (group 8, the LM path's length),
+    # D = 96 and 128, a ragged Lq, bf16 × bf16 with group 8
+    (1, 32, 4, 2016, 2016, 64, True, 0, "float32", "float32"),
+    (1, 16, 2, 700, 700, 96, True, 0, "float32", "float32"),
+    (2, 8, 1, 513, 513, 128, True, 200, "float32", "float32"),
+    (1, 32, 4, 333, 1000, 64, True, 0, "float32", "float32"),
+    (1, 32, 4, 260, 260, 64, True, 0, "bfloat16", "bfloat16"),
+    (1, 32, 4, 260, 400, 128, False, 0, "float32", "bfloat16"),
 ])
 def test_cuda_flash_attention_matches_twin(rng, cuda, B, Hq, Hkv, Lq, Lk, D,
                                            causal, window, qdt, kvdt):
     """Contiguous [B, H, L, D] tensors and strided views of [B, L, H, D]
-    ones: 2e-3 in float32, 2e-2 with a bf16 output."""
+    ones: 2e-3 in float32, 2e-2 with a bf16 output; and a float32 output
+    within 1e-4 (the tensor-core path's split TF32 keeps float32
+    accuracy)."""
     q, k, v = _flash_inputs(rng, B, Hq, Hkv, Lq, Lk, D)
     t = lambda x, dt: torch.from_numpy(x).to(cuda, getattr(torch, dt))
     tol = 2e-2 if qdt == "bfloat16" else 2e-3
@@ -742,6 +766,8 @@ def test_cuda_flash_attention_matches_twin(rng, cuda, B, Hq, Hkv, Lq, Lk, D,
         assert got.dtype == args[0].dtype and got.shape == args[0].shape
         want = ref.flash_attention(*args, causal=causal, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        if qdt == "float32" and got.numel():
+            assert float((got - want).abs().max()) <= 1e-4
         if causal and Lq > Lk:
             assert bool((got[:, :, :Lq - Lk] == 0).all())
 
