@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's join-correlation query paths, and its LM
-serving path, on one CUDA card.
+serving paths (dense, hybrid SSM, encoder–decoder), on one CUDA card.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports only
@@ -147,8 +147,15 @@ fatal on failure (exit code 1, no result line):
                 = 37, Lq = 1, Lq > Lk causal, whose first rows see no key:
                 0) and more shapes of the split-key decode kernel (2017
                 keys, hymba's decode with window 1024, 4 positions × 4
-                heads with window 16); timed at both path shapes beside its
-                twin and its bound (at prefill the tensor-core route's: three
+                heads with window 16), and the launch shapes the hybrid and
+                encoder-decoder paths add (whisper's non-causal encoder, q
+                and k/v [4, 12, 1500, 64] f32; its cross-attention prefill,
+                416 queries on 1500 keys, and decode, one query on the bf16
+                cross cache; hymba's ring decode, q [4, 25, 1, 64] f32 on a
+                full [4, 5, 1024, 64] bf16 ring), each also timed beside its
+                twin, its bound and one SDPA call; timed at the dense
+                path's two shapes beside its twin and its bound (at
+                prefill the tensor-core route's: three
                 TF32 products a float32 product at the TF32 rate, with the
                 float32 CUDA-core bound beside it),
                 by CUDA events and ``torch.profiler``, and beside one
@@ -166,6 +173,19 @@ fatal on failure (exit code 1, no result line):
                 logits equal ``forward_logits`` within 2e-3 and 5e-3 of the
                 largest logit; (c) at 2 layers on 1 × 256 tokens, prefill
                 and 4 decode steps equal the CPU plain path (LM_TOL).
+  12b. lm_hybrid — hymba-1.5b at full width and depth (32 layers, 29 of
+                them sliding-window 1024 with ring caches, 3 global; each
+                attention ∥ a Mamba SSM) serves 4 × 2048-token prompts (8
+                SSM chunks of 256) and 32 greedy steps: 32 + 32 × 32
+                flash_attention launches; checks (a)–(c) as for lm, every
+                cache field compared, (c) at 2 layers on 1280 tokens so the
+                ring wraps; the SSM's and its doubling scan's card time by
+                CUDA events around each call.
+  12c. lm_encdec — whisper-small (12 encoder + 12 decoder layers) encodes
+                4 × 1500 frames from ``lm_batch`` and serves the first 416
+                target tokens + 32 greedy steps (its 448-token context):
+                12 + 24 + 24 × 32 launches (encoder, self- and
+                cross-attention); checks (a)–(c), (c) at 2 + 2 layers.
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
@@ -179,7 +199,9 @@ goodput, latencies, misses, coalescing, the race's ticket counts), an
 ``lm`` JSON line (prefill seconds and tokens/s, decode ms per step p50 and
 p99, peak device memory, flash_attention launches, the checks' errors and
 a profile of one prefill and one decode step: attention, matrix products,
-the rest), a ``phases`` JSON line (seconds per phase),
+the rest), ``lm_hybrid`` and ``lm_encdec`` JSON lines of the same form
+(hymba's with the SSM's and its scan's card ms, whisper's with frames/s),
+a ``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -283,6 +305,22 @@ RACE_STEPS = 4
 LM_CONFIG = LMR.get_config("tinyllama-1.1b")
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2016, 32
 LM_CPU = (2, 256, 4)
+#: the hybrid LM phase: hymba-1.5b at full width and depth, 4 × 2048-token
+#: prompts + LM_NEW steps (8 SSM chunks of SSM_CHUNK, the reference's
+#: default; the 1024-wide rings wrap, the 3 global caches hold 2080);
+#: card vs CPU at 2 layers (a global and a windowed one) on 1280 tokens,
+#: so the ring wraps there too
+HYBRID_CONFIG = LMR.get_config("hymba-1.5b")
+HYBRID_PROMPT = 2048
+HYBRID_CPU = (2, 1280, 4)
+SSM_CHUNK = 256
+#: the encoder–decoder LM phase: whisper-small (12 + 12 layers), 4 × 1500
+#: frames (its encoder context) from ``lm_batch``, the first 416 target
+#: tokens + LM_NEW steps = its 448-token text context; card vs CPU at 2 +
+#: 2 layers: (layers, prompt, steps, frames)
+ENCDEC_CONFIG = LMR.get_config("whisper-small")
+ENCDEC_FRAMES, ENCDEC_PROMPT = 1500, 416
+ENCDEC_CPU = (2, 416, 4, 1500)
 #: (a) kernel path vs twin path and (c) card vs CPU: max |logit
 #: difference| over the largest |logit|, the unit of (b)'s 2e-3 / 5e-3
 LM_TOL = 2e-3
@@ -303,6 +341,9 @@ SPLIT_TF32_PRODUCTS = 3
 #: the attention kernel against its twin at the LM path's float32 prefill
 #: shape (split TF32 keeps float32 accuracy; one TF32 product misses ~1e-3)
 PREFILL_TOL = 1e-4
+#: the flash_attention cases timed as well as checked: the launch shapes
+#: of the hybrid and encoder-decoder paths
+PATH_CASES = ("whisper encoder", "cross prefill", "cross decode", "hymba ring decode")
 #: postings_merge's edge cases: C (the path's rows folded into [0, C))
 MERGE_EDGES = (131071, 45, 1)
 
@@ -1671,7 +1712,45 @@ def _flash_cases():
         ("decode ragged", (B, 32, 4, 1, S + 1, 64), False, 0, f32, bf16),
         ("decode window", (2, 25, 5, 1, 2048, 64), True, 1024, f32, f32),
         ("chunk of 4", (2, 16, 4, 4, 300, 64), True, 16, f32, bf16),
+        # the launch shapes the hybrid and encoder-decoder paths add (each
+        # also timed, PATH_CASES): whisper's encoder, its cross-attention
+        # in prefill and decode (queries on the bf16 cross cache), and a
+        # hymba ring decode over a full 1024-slot ring
+        ("whisper encoder", (B, 12, 12, ENCDEC_FRAMES, ENCDEC_FRAMES, 64), False, 0, f32, f32),
+        ("cross prefill", (B, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0, f32, f32),
+        ("cross decode", (B, 12, 12, 1, ENCDEC_FRAMES, 64), False, 0, f32, bf16),
+        ("hymba ring decode", (B, 25, 5, 1, 1024, 64), False, 0, f32, bf16),
     ]
+
+
+def _flash_path_row(rng, dev, what, shape, causal, window, qdt, kvdt):
+    """The attention kernel timed at one launch shape of an LM path: CUDA
+    events, the profiler's device time, its twin, its bound (split-TF32 on
+    the tensor cores for ``flash_fwd``, float32 CUDA cores for the split-key
+    kernel) and one SDPA call (on the cache cast to float32 outside the
+    timed window where K/V are bf16). The path shapes are unmasked, so
+    every (query, key) pair counts."""
+    B, Hq, Hkv, Lq, Lk, D = shape
+    q, k, v = _flash_args(rng, dev, *shape, qdt=qdt, kvdt=kvdt)
+    kern = lambda: FA.flash_attention(q, k, v, causal=causal, window=window)
+    k32, v32 = k.float(), v.float()
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k32, v32, is_causal=causal, enable_gqa=True)
+    check_close(f"SDPA at the {what} shape", [sdpa()], [kern()], FLASH_TOL[qdt])
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    nops = 4.0 * B * Hq * D * Lq * Lk
+    split_key = Lq * (Hq // Hkv) <= FA.SPLIT_ROWS
+    b, by = (bound_ms(nbytes, nops) if split_key
+             else bound_ms(nbytes, SPLIT_TF32_PRODUCTS * nops, TF32_OPS_S))
+    reps = 50 if split_key else 10
+    out = dict(shape=[list(q.shape), list(k.shape), f"{str(qdt)[6:]} q, {str(kvdt)[6:]} k/v"],
+               kernel="flash_fwd_split" if split_key else "flash_fwd",
+               ms=cuda_ms(kern, reps), device_ms=profiled_ms(kern, reps, FLASH_KERNEL),
+               plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=causal), 3, warm=1),
+               library_ms=cuda_ms(sdpa, reps), bound_ms=b, bound_by=by)
+    if not split_key:
+        out["fp32_bound_ms"] = bound_ms(nbytes, nops)[0]
+    return out
 
 
 def phase_flash(dev):
@@ -1736,15 +1815,21 @@ def phase_flash(dev):
                          library="scaled_dot_product_attention(q, k32, v32, enable_gqa=True) "
                                  "on the cache cast to float32 outside the timed window",
                          bound_ms=b, bound_by=by)
+    row["shapes"] = {c[0]: _flash_path_row(rng, dev, *c) for c in _flash_cases()
+                     if c[0] in PATH_CASES}
     say(f"flash_attention: {len(_flash_cases())} shapes (the LM path's prefill and "
         f"decode, the reference sweep, hymba's 25/5 heads with window 1024 and "
         f"without, Lq = Lk = 37, Lq = 1, Lq > Lk, decode over 2017 keys, hymba's "
-        f"decode with window 1024, 4 positions × 4 heads) — each matches its twin (max "
+        f"decode with window 1024, 4 positions × 4 heads, whisper's encoder, cross "
+        f"prefill and cross decode, hymba's ring decode) — each matches its twin (max "
         f"|diff| {worst}; prefill {prefill_err}); prefill {row['ms']:.4f} ms events, "
         f"{row['device_ms']} ms "
         f"device, twin {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
         f"decode {row['decode']['ms']:.4f} ms events, {row['decode']['device_ms']} ms device, "
-        f"SDPA on the f32-cast cache {row['decode']['library_ms']:.4f} ms")
+        f"SDPA on the f32-cast cache {row['decode']['library_ms']:.4f} ms; "
+        + "; ".join(f"{w} {r['ms']:.4f} ms events, {r['device_ms']} ms device, bound "
+                    f"{r['bound_ms']:.4f}, SDPA {r['library_ms']:.4f}"
+                    for w, r in row["shapes"].items()))
     return {"flash_attention": row}
 
 
@@ -1760,11 +1845,13 @@ def twin_attention():
         ops.flash_attention = saved
 
 
-def _greedy(params, cfg, prompt, steps, forced=None):
+def _greedy(params, cfg, prompt, steps, forced=None, frames=None):
     """prefill + ``steps`` decode steps; each step feeds the last step's
-    argmax, or ``forced[:, t]`` when given. Returns the prefill logits,
-    each step's logits, the fed tokens [B, steps] and the cache."""
-    lg, cache = TT.prefill(params, cfg, prompt, max_new_tokens=steps)
+    argmax, or ``forced[:, t]`` when given; ``frames``: an encoder's input.
+    Returns the prefill logits, each step's logits, the fed tokens [B,
+    steps] and the cache."""
+    kw = {} if frames is None else dict(frames=frames)
+    lg, cache = TT.prefill(params, cfg, prompt, max_new_tokens=steps, **kw)
     first, logits, fed = lg[:, -1], [], []
     cur = lg[:, -1]
     for t in range(steps):
@@ -1774,6 +1861,41 @@ def _greedy(params, cfg, prompt, steps, forced=None):
         cur = lg[:, -1]
         logits.append(cur)
     return first, torch.stack(logits, 1), torch.cat(fed, 1), cache
+
+
+def _cache_fields(cache):
+    """(layer, field, tensor) of every tensor field of every layer of a
+    decode cache, stacked or a tuple of layers (the parent's package's
+    stacked k, v, kpos too, for ``--speed``)."""
+    layers = cache.layers
+    if isinstance(layers, tuple):
+        views = list(enumerate(layers))
+    else:
+        views = [(li, None) for li in range(layers.k.shape[0])]
+    out = []
+    for li, c in views:
+        for f in ("k", "v", "kpos", "ssm_h", "ssm_tail", "xk", "xv"):
+            t = getattr(layers if c is None else c, f, None)
+            if t is not None:
+                out.append((li, f, t if c is not None else t[li]))
+    return out
+
+
+def _compare_caches(what, got, want):
+    """Every float field within the bf16 kernel tolerance, positions equal."""
+    g, w = _cache_fields(got), _cache_fields(want)
+    if [(li, f, tuple(t.shape)) for li, f, t in g] != [(li, f, tuple(t.shape)) for li, f, t in w]:
+        fail(f"{what}: the caches' layouts differ")
+    worst = 0.0
+    for (li, f, a), (_, _, b) in zip(g, w):
+        a, b = a.cpu(), b.cpu()
+        if f == "kpos":
+            if not torch.equal(a, b):
+                fail(f"{what}: layer {li}'s cache positions differ")
+            continue
+        worst = max(worst, check_close(f"{what} (layer {li} {f})", [a.float()], [b.float()],
+                                       FLASH_TOL[torch.bfloat16]))
+    return worst
 
 
 def _rel(got, want) -> float:
@@ -1796,35 +1918,96 @@ def _kernel_split(fn):
     return split
 
 
-def phase_lm(dev):
-    """tinyllama-1.1b at full width served on the card: 4 prompts of 2016
-    tokens, prefill and 32 greedy decode steps (the published 2048-token
-    context) through the attention kernel; then checks (a) twin path, (b)
-    prefill/decode against forward_logits in float32 and (c) card against
-    the CPU plain path at 2 layers."""
+@dataclasses.dataclass(frozen=True)
+class LMPath:
+    """One LM serving path of the script: its JSON line's name, the config
+    served at full width, prompts × prompt tokens (an encoder–decoder: ×
+    ``frames`` encoder frames too, the prompt the first target tokens),
+    greedy steps, and the card-vs-CPU check's (layers, prompt tokens,
+    steps, frames)."""
+    line: str
+    cfg: object
+    batch: int
+    prompt: int
+    new: int
+    cpu: tuple
+    frames: int = 0
+
+
+def _lm_inputs(cfg, batch, prompt, frames, seed, step, dev):
+    """(prompt tokens [B, prompt], frames [B, frames, d] or None) from
+    ``lm_batch``: a decoder-only config's tokens, or an encoder–decoder's
+    frames and the first target tokens."""
+    if not frames:
+        b = lm_batch(cfg, batch, prompt, seed=seed, step=step)
+        return torch.from_numpy(b["tokens"][0]).to(dev), None
+    b = lm_batch(cfg, batch, frames, seed=seed, step=step)
+    return (torch.from_numpy(b["target_tokens"][0][:, :prompt]).to(dev),
+            torch.from_numpy(b["frames"][0]).to(dev))
+
+
+def _scan_ms(fn):
+    """One call of ``fn`` with the SSM (`ssm.mamba`) and its doubling scan
+    (`ssm._doubling_scan`) each bracketed by CUDA events: (ms in the SSM,
+    ms in the scan), summed over their calls."""
+    from repro_torch.models import ssm as SM
+    spans = {"mamba": [], "_doubling_scan": []}
+    saved = {name: getattr(SM, name) for name in spans}
+
+    def bracket(name):
+        def call(*args, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = saved[name](*args, **kw)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        return call
+
+    for name in spans:
+        setattr(SM, name, bracket(name))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, f in saved.items():
+            setattr(SM, name, f)
+    return tuple(sum(e0.elapsed_time(e1) for e0, e1 in spans[n]) for n in spans)
+
+
+def _serve_lm(dev, path: LMPath):
+    """``path.cfg`` at full width served on the card: ``path.batch``
+    prompts, prefill and ``path.new`` greedy decode steps through the
+    attention kernel, with every launch count at 0 just before and read
+    just after; then checks (a) twin path, (b) prefill/decode against
+    forward_logits in float32 and (c) card against the CPU plain path at
+    ``path.cpu[0]`` layers. Prints the path's JSON line; returns the
+    launches."""
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matrix products are on: the reference computes in float32")
-    cfg = LM_CONFIG
+    cfg, B, P, N = path.cfg, path.batch, path.prompt, path.new
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = LMP.init_params(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    toks = torch.from_numpy(lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=SEED,
-                                     step=0)["tokens"][0]).to(dev)
-    _greedy(params, cfg, toks[:1, :64], 2)          # cuBLAS and kernel warm-up
+    toks, frames = _lm_inputs(cfg, B, P, path.frames, SEED, 0, dev)
+    # cuBLAS and kernel warm-up
+    _greedy(params, cfg, toks[:1, :64], 2, frames=None if frames is None else frames[:1, :64])
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launches()
+    kw = {} if frames is None else dict(frames=frames)
     t0 = time.perf_counter()
-    lg, cache = TT.prefill(params, cfg, toks, max_new_tokens=LM_NEW)
+    lg, cache = TT.prefill(params, cfg, toks, max_new_tokens=N, **kw)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     first, steps, fed, step_s = lg[:, -1], [], [], []
     cur = first
-    for _ in range(LM_NEW):
+    for _ in range(N):
         tok = cur.argmax(-1)[:, None]
         t0 = time.perf_counter()
         lg, cache = TT.decode_step(params, cfg, cache, tok)
@@ -1836,89 +2019,126 @@ def phase_lm(dev):
     launches = ops.launches()
     peak = torch.cuda.max_memory_allocated()
     steps, fed = torch.stack(steps, 1), torch.cat(fed, 1)
-    L = cfg.num_layers
-    if launches["flash_attention"] != L * (1 + LM_NEW):
-        fail(f"the LM path launched flash_attention {launches['flash_attention']} "
-             f"times, expected {L} + {L} × {LM_NEW}")
+    windows = TT.layer_windows(cfg)
+    L, X = len(windows), 2 if cfg.cross_attention else 1
+    want = cfg.encoder_layers + L * X * (1 + N)
+    if launches["flash_attention"] != want:
+        fail(f"the {path.line} path launched flash_attention {launches['flash_attention']} "
+             f"times, expected {cfg.encoder_layers} + {L * X} × (1 + {N}) = {want}")
     if not (bool(torch.isfinite(first).all()) and bool(torch.isfinite(steps).all())):
-        fail("the LM path's logits are not finite")
-    if cache.pos != LM_PROMPT + LM_NEW or tuple(cache.layers.k.shape) != (
-            L, LM_BATCH, LM_PROMPT + LM_NEW, cfg.num_kv_heads, cfg.head_dim):
-        fail(f"the LM cache is at {cache.pos} with k {tuple(cache.layers.k.shape)}")
+        fail(f"the {path.line} path's logits are not finite")
+    ks = [t for _, f, t in _cache_fields(cache) if f == "k"]
+    lens = [int(w) if w > 0 else P + N for w in windows]
+    if cache.pos != P + N or [tuple(k.shape) for k in ks] != [
+            (B, W, cfg.num_kv_heads, cfg.head_dim) for W in lens]:
+        fail(f"the {path.line} cache is at {cache.pos} with k {[tuple(k.shape) for k in ks]}")
 
     # (a) the same calls with every attention on the twin
     ops.reset_launches()
     with twin_attention():
-        t_first, t_steps, _, t_cache = _greedy(params, cfg, toks, LM_NEW, forced=fed)
+        t_first, t_steps, _, t_cache = _greedy(params, cfg, toks, N, forced=fed, frames=frames)
     if ops.launches()["flash_attention"]:
         fail("the twin path launched the kernel")
     err_a = max(_rel(first, t_first), _rel(steps, t_steps))
     if not err_a <= LM_TOL:
-        fail(f"(a) kernel path vs twin path: logits differ by {err_a} of the largest")
-    cache_err = check_close("(a) the kernel path's cache vs the twin path's",
-                            [cache.layers.k.float(), cache.layers.v.float()],
-                            [t_cache.layers.k.float(), t_cache.layers.v.float()],
-                            FLASH_TOL[torch.bfloat16])
-    if not torch.equal(cache.layers.kpos, t_cache.layers.kpos):
-        fail("(a) the cache positions differ")
+        fail(f"(a) {path.line}: kernel path vs twin path: logits differ by {err_a} of the largest")
+    cache_err = _compare_caches(f"(a) {path.line}: the kernel path's cache vs the twin path's",
+                                cache, t_cache)
     del t_cache
 
     # (b) the reference's consistency check at full width, in float32
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     seq = torch.cat([toks, fed], 1)
-    full = TT.forward_logits(params, cfg32, {"tokens": seq})
-    f_first, f_steps, _, f_cache = _greedy(params, cfg32, toks, LM_NEW, forced=fed)
-    err_b = (_rel(f_first, full[:, LM_PROMPT - 1]),
-             _rel(f_steps, full[:, LM_PROMPT:]))
-    if f_cache.layers.k.dtype != torch.float32:
+    full = TT.forward_logits(params, cfg32, {"tokens": seq} if frames is None
+                             else {"frames": frames, "target_tokens": seq})
+    full = (full[:, P - 1], full[:, P:])
+    f_first, f_steps, _, f_cache = _greedy(params, cfg32, toks, N, forced=fed, frames=frames)
+    err_b = (_rel(f_first, full[0]), _rel(f_steps, full[1]))
+    if any(t.dtype != torch.float32 for _, f, t in _cache_fields(f_cache) if f != "kpos"):
         fail("(b) the float32 config's cache is not float32")
     if not (err_b[0] <= 2e-3 and err_b[1] <= 5e-3):
-        fail(f"(b) prefill / decode vs forward_logits differ by {err_b} of the "
+        fail(f"(b) {path.line}: prefill / decode vs forward_logits differ by {err_b} of the "
              f"largest logit (limits 2e-3, 5e-3)")
     del full, f_cache
 
-    # (c) the card against the CPU plain path, full width at 2 layers
-    cfg2 = dataclasses.replace(cfg, num_layers=LM_CPU[0])
+    # (c) the card against the CPU plain path, full width at a cut depth
+    n_layers, cpu_prompt, cpu_steps, cpu_frames = path.cpu
+    cfg2 = dataclasses.replace(cfg, num_layers=n_layers, **(
+        dict(encoder_layers=n_layers, decoder_layers=n_layers) if cfg.encoder_layers else {}))
     p2 = LMP.init_params(cfg2, SEED, device=dev)
     p2_cpu = _tree(p2, lambda t: t.cpu())
-    t2 = torch.from_numpy(lm_batch(cfg2, 1, LM_CPU[1], seed=SEED, step=1)["tokens"][0])
-    c_first, c_steps, c_fed, c_cache = _greedy(p2, cfg2, t2.to(dev), LM_CPU[2])
-    h_first, h_steps, _, h_cache = _greedy(p2_cpu, cfg2, t2, LM_CPU[2], forced=c_fed.cpu())
+    t2, fr2 = _lm_inputs(cfg2, 1, cpu_prompt, cpu_frames, SEED, 1, "cpu")
+    c_first, c_steps, c_fed, c_cache = _greedy(
+        p2, cfg2, t2.to(dev), cpu_steps, frames=None if fr2 is None else fr2.to(dev))
+    h_first, h_steps, _, h_cache = _greedy(p2_cpu, cfg2, t2, cpu_steps, forced=c_fed.cpu(),
+                                           frames=fr2)
     err_c = max(_rel(c_first.cpu(), h_first), _rel(c_steps.cpu(), h_steps))
     if not err_c <= LM_TOL:
-        fail(f"(c) card vs CPU plain path: logits differ by {err_c} of the largest")
-    check_close("(c) the card's cache vs the CPU's",
-                [c_cache.layers.k.float().cpu(), c_cache.layers.v.float().cpu()],
-                [h_cache.layers.k.float(), h_cache.layers.v.float()],
-                FLASH_TOL[torch.bfloat16])
+        fail(f"(c) {path.line}: card vs CPU plain path: logits differ by {err_c} of the largest")
+    _compare_caches(f"(c) {path.line}: the card's cache vs the CPU's", c_cache, h_cache)
     del p2, p2_cpu, c_cache, h_cache
 
     # where the time goes: one prefill and one decode step under the profiler
-    split_prefill = _kernel_split(lambda: TT.prefill(params, cfg, toks, max_new_tokens=LM_NEW))
-    _, cache = TT.prefill(params, cfg, toks, max_new_tokens=LM_NEW)
+    split_prefill = _kernel_split(lambda: TT.prefill(params, cfg, toks, max_new_tokens=N, **kw))
+    _, cache = TT.prefill(params, cfg, toks, max_new_tokens=N, **kw)
     tok = fed[:, :1]
     split_decode = _kernel_split(lambda: TT.decode_step(params, cfg, cache, tok))
     checks_launched = ops.launches()["flash_attention"]
     line = dict(
         arch=cfg.name, layers=L, d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
         params=LMP.param_count(cfg), param_bytes=param_bytes, init_s=t_init,
-        batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW, cache_dtype=cfg.dtype,
-        prefill_s=t_prefill, prefill_tokens_s=LM_BATCH * LM_PROMPT / t_prefill,
+        batch=B, prompt=P, new_tokens=N, cache_dtype=cfg.dtype,
+        prefill_s=t_prefill, prefill_tokens_s=B * P / t_prefill,
         decode_ms_p50=_pct(step_s, 50), decode_ms_p99=_pct(step_s, 99),
-        decode_tokens_s=LM_BATCH / float(np.mean(step_s)),
+        decode_tokens_s=B / float(np.mean(step_s)),
         peak_alloc_bytes=peak, resident_before_bytes=resident,
         flash_launches=launches["flash_attention"],
         flash_launches_checks=checks_launched,
         check_a_rel=err_a, check_a_cache_abs=cache_err, check_b_rel=list(err_b),
         check_c_rel=err_c, prefill_profile_ms=split_prefill,
         decode_profile_ms=split_decode)
-    say("lm " + json.dumps(line))
-    say(f"lm: {cfg.name} ({L} layers, d {cfg.d_model}) served {LM_BATCH} × "
-        f"{LM_PROMPT} tokens + {LM_NEW} greedy steps with {line['flash_launches']} "
-        f"flash_attention launches; (a) == twin path ({err_a:.3g} of the largest "
-        f"logit), (b) == forward_logits in float32 ({err_b[0]:.3g}, {err_b[1]:.3g}), "
-        f"(c) card == CPU plain path at {LM_CPU[0]} layers ({err_c:.3g})")
+    if cfg.encoder_layers:
+        line.update(encoder_layers=cfg.encoder_layers, frames=path.frames,
+                    prefill_frames_s=B * path.frames / t_prefill)
+    if cfg.hybrid_ssm:
+        # the SSM's and its scan's card time in one prefill and one decode
+        # step ("other" in the profiles), by CUDA events around each call
+        ssm, scan = _scan_ms(lambda: TT.prefill(params, cfg, toks, max_new_tokens=N, **kw))
+        d_ssm, d_scan = _scan_ms(lambda: TT.decode_step(params, cfg, cache, tok))
+        line.update(windows=sorted({int(w) for w in windows}),
+                    ssm_chunks=P // SSM_CHUNK if P % SSM_CHUNK == 0 else 1,
+                    prefill_ssm_ms=ssm, prefill_ssm_scan_ms=scan,
+                    decode_ssm_ms=d_ssm, decode_ssm_scan_ms=d_scan)
+    say(f"{path.line} " + json.dumps(line))
+    say(f"{path.line}: {cfg.name} ({L} layers, d {cfg.d_model}"
+        + (f"; {cfg.encoder_layers} encoder layers over {path.frames} frames"
+           if cfg.encoder_layers else "")
+        + f") served {B} × {P} tokens + {N} greedy steps with "
+        f"{line['flash_launches']} flash_attention launches; (a) == twin path ({err_a:.3g} of "
+        f"the largest logit), (b) == forward_logits in float32 ({err_b[0]:.3g}, "
+        f"{err_b[1]:.3g}), (c) card == CPU plain path at {n_layers} layers ({err_c:.3g})")
     return launches
+
+
+def phase_lm(dev):
+    """tinyllama-1.1b at full width: 4 prompts of 2016 tokens, prefill and
+    32 greedy decode steps (the published 2048-token context)."""
+    return _serve_lm(dev, LMPath("lm", LM_CONFIG, LM_BATCH, LM_PROMPT, LM_NEW, LM_CPU + (0,)))
+
+
+def phase_lm_hybrid(dev):
+    """hymba-1.5b at full width: 4 prompts of 2048 tokens (8 SSM chunks of
+    256; the 1024-wide rings wrap), prefill and 32 greedy steps."""
+    return _serve_lm(dev, LMPath("lm_hybrid", HYBRID_CONFIG, LM_BATCH, HYBRID_PROMPT, LM_NEW,
+                                 HYBRID_CPU + (0,)))
+
+
+def phase_lm_encdec(dev):
+    """whisper-small at full width: 4 × 1500 encoder frames, the first 416
+    target tokens as the prompt, 32 greedy steps (its 448-token text
+    context)."""
+    return _serve_lm(dev, LMPath("lm_encdec", ENCDEC_CONFIG, LM_BATCH, ENCDEC_PROMPT, LM_NEW,
+                                 ENCDEC_CPU, frames=ENCDEC_FRAMES))
 
 
 def _leaves(tree):
@@ -2069,7 +2289,11 @@ def main(argv) -> None:
                                        best, dev)["rank_transform"]
     timed("scheduler", phase_scheduler, index, groups, keys, vals, dev)
     rows.update(timed("flash_attention", phase_flash, dev))
-    launches["flash_attention"] = timed("lm", phase_lm, dev)["flash_attention"]
+    # flash_attention's launches: the sum over the three LM paths
+    launches["flash_attention"] = sum(
+        timed(name, fn, dev)["flash_attention"]
+        for name, fn in (("lm", phase_lm), ("lm_hybrid", phase_lm_hybrid),
+                         ("lm_encdec", phase_lm_encdec)))
     say("phases " + json.dumps(phases))
 
     kernels = []

@@ -9,9 +9,9 @@ JAX promotes a bfloat16 operand of a product with a float32 one to float32;
 ``torch.matmul`` refuses mixed dtypes, so `matmul` makes that promotion
 explicit, at the places the reference's einsums make it. Elementwise
 operations promote the same way in both frameworks. Left out: the mesh
-constraints (``act_constrain``, a no-op without a mesh), cross-attention,
-MoE, and the query-chunked and local-window XLA attention paths, which the
-kernel replaces. RoPE's tables are computed once a forward (`rope`) and
+constraints (``act_constrain``, a no-op without a mesh), MoE, and the
+query-chunked and local-window XLA attention paths, which the kernel
+replaces. RoPE's tables are computed once a forward (`rope`) and
 applied per layer (`apply_rope`), where the reference's ``rotary`` does
 both per layer; the numbers are the same.
 """
@@ -59,23 +59,44 @@ def apply_rope(x, cs):
 def qkv(x, p, cfg, cs):
     """Self-attention projections of x [B, S, d]: q [B, S, H, hd] and k, v
     [B, S, Hkv, hd], q and k rotated by the RoPE tables ``cs`` (`rope`)."""
+    k, v = kv_proj(x, p, cfg)
+    return apply_rope(query(x, p, cfg), cs), apply_rope(k, cs), v
+
+
+def kv_proj(src, p, cfg):
+    """The K and V projections of ``src`` [B, Sk, d], each [B, Sk, Hkv,
+    hd], unrotated (a cross-attention source, or `qkv`'s before RoPE)."""
+    B, Sk, _ = src.shape
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    k, v = matmul(src, p["wk"]), matmul(src, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k.reshape(B, Sk, Hkv, hd), v.reshape(B, Sk, Hkv, hd)
+
+
+def query(x, p, cfg):
+    """The unrotated query projection of x [B, S, d]: [B, S, H, hd] (a
+    cross-attention's query)."""
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
+    q = matmul(x, p["wq"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(B, S, H, hd), cs)
-    k = apply_rope(k.reshape(B, S, Hkv, hd), cs)
-    return q, k, v.reshape(B, S, Hkv, hd)
+        q = q + p["bq"]
+    return q.reshape(B, S, cfg.num_heads, cfg.head_dim)
 
 
-def attention(x, p, cfg, *, cs, window=0):
-    """Causal multi-head/GQA self-attention. x: [B, S, d] → [B, S, d];
-    ``cs``: the RoPE tables of the positions (`rope`).
+def attention(x, p, cfg, *, cs=None, kv=None, causal=True, window=0):
+    """Multi-head/GQA attention. x: [B, S, d] → [B, S, d].
 
-    ``window``: 0 ⇒ full attention; > 0 ⇒ the last ``window`` positions."""
-    q, k, v = qkv(x, p, cfg, cs)
-    return attn_out(attend(q, k, v, causal=True, window=window), p)
+    ``kv``: the cross-attention source [B, Sk, d] (whisper's decoder),
+    unrotated; None ⇒ self-attention, q and k rotated by ``cs``, the RoPE
+    tables of the positions (`rope`). ``causal=False`` ⇒ every key (the
+    encoder, cross-attention). ``window``: 0 ⇒ full attention; > 0 ⇒ the
+    last ``window`` positions."""
+    if kv is None:
+        q, k, v = qkv(x, p, cfg, cs)
+    else:
+        q, (k, v) = query(x, p, cfg), kv_proj(kv, p, cfg)
+    return attn_out(attend(q, k, v, causal=causal, window=window), p)
 
 
 def attn_out(out, p):

@@ -30,8 +30,7 @@ from repro_torch.models import transformer as T
 
 DENSE = ("tinyllama-1.1b", "qwen1.5-0.5b", "phi3-mini-3.8b", "starcoder2-15b",
          "llava-next-mistral-7b")
-LATER = ("grok-1-314b", "llama4-maverick-400b-a17b", "hymba-1.5b", "rwkv6-3b",
-         "whisper-small")
+LATER = ("grok-1-314b", "llama4-maverick-400b-a17b", "rwkv6-3b")
 TOL = 2e-4
 BF16_TOL = 2e-2
 B, S, STEPS = 2, 16, 3
@@ -265,7 +264,7 @@ def test_other_families_raise(arch):
     for call in (lambda: T.forward_logits(prm, cfg, {"tokens": toks}),
                  lambda: T.prefill(prm, cfg, toks),
                  lambda: T.make_decode_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1[5-8]"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [23], \"(MoE layers|RWKV6)\""):
             call()
 
 
