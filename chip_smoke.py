@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's join-correlation query paths, and its LM
-serving paths (dense, hybrid SSM, encoder–decoder), on one CUDA card.
+serving paths (dense, hybrid SSM, encoder–decoder, MoE, RWKV6), on one
+CUDA card.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports only
@@ -152,8 +153,13 @@ fatal on failure (exit code 1, no result line):
                 and k/v [4, 12, 1500, 64] f32; its cross-attention prefill,
                 416 queries on 1500 keys, and decode, one query on the bf16
                 cross cache; hymba's ring decode, q [4, 25, 1, 64] f32 on a
-                full [4, 5, 1024, 64] bf16 ring), each also timed beside its
-                twin, its bound and one SDPA call; timed at the dense
+                full [4, 5, 1024, 64] bf16 ring) and head dim 128 (grok's
+                causal prefill, q [4, 48, 2048, 128] on k/v [4, 8, 2048,
+                128] f32, and split-key decode, 48 query heads on 8 bf16 KV
+                heads of 2080 positions; llama4's decode, 40 on 8), each
+                also timed beside its twin, its bound and one SDPA call,
+                with the compiler's registers and spills of the D = 128
+                instantiations; timed at the dense
                 path's two shapes beside its twin and its bound (at
                 prefill the tensor-core route's: three
                 TF32 products a float32 product at the TF32 rate, with the
@@ -186,6 +192,25 @@ fatal on failure (exit code 1, no result line):
                 target tokens + 32 greedy steps (its 448-token context):
                 12 + 24 + 24 × 32 launches (encoder, self- and
                 cross-attention); checks (a)–(c), (c) at 2 + 2 layers.
+  12d. lm_moe — grok-1 at full width (d 6144, 48/8 heads of 128, 8
+                experts top-2, d_ff 32768), 2 of its 64 layers (45.8 GB
+                of f32 weights), serves 4 × 2048 tokens (capacity 2560 an
+                expert, gather dispatch; the line counts the dropped
+                slots) + 32 greedy steps (every expert, gate-weighted): 2
+                + 2 × 32 launches; (b) on one sequence with dense MoE on
+                both sides (capacity depends on a call's tokens), (c) at
+                1 layer on 256 tokens after the served weights are
+                released (the host's MemAvailable read first).
+  12e. lm_moe_pair — llama4-maverick at full matrix widths: one (dense,
+                MoE) pair, 64 of its 128 experts top-1 + a shared expert
+                (42.1 GB); two attentions a pair, so 2 × (1 + 32)
+                launches; (b) as for lm_moe, (c) with 8 experts.
+  12f. lm_rwkv — rwkv6-3b at full width and depth (32 layers), 4 × 2048
+                tokens (32 WKV chunks of 64) + 32 steps: no attention, no
+                launch; the line adds the time mix's and the WKV's card
+                ms by CUDA events. Every length is a multiple of 64 (the
+                reference's chunk rule runs any other as one chunk): (b)
+                pads the full sequence to one.
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
@@ -199,8 +224,10 @@ goodput, latencies, misses, coalescing, the race's ticket counts), an
 ``lm`` JSON line (prefill seconds and tokens/s, decode ms per step p50 and
 p99, peak device memory, flash_attention launches, the checks' errors and
 a profile of one prefill and one decode step: attention, matrix products,
-the rest), ``lm_hybrid`` and ``lm_encdec`` JSON lines of the same form
-(hymba's with the SSM's and its scan's card ms, whisper's with frames/s),
+the rest), ``lm_hybrid``, ``lm_encdec``, ``lm_moe``, ``lm_moe_pair`` and
+``lm_rwkv`` JSON lines of the same form (hymba's with the SSM's and its
+scan's card ms, whisper's with frames/s, the MoE lines with the prefill's
+capacity and dropped slots, rwkv6's with the time mix's and WKV's ms),
 a ``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -321,6 +348,33 @@ SSM_CHUNK = 256
 ENCDEC_CONFIG = LMR.get_config("whisper-small")
 ENCDEC_FRAMES, ENCDEC_PROMPT = 1500, 416
 ENCDEC_CPU = (2, 416, 4, 1500)
+#: the MoE LM phase: grok-1 at full width (d 6144, 48/8 heads of 128, 8
+#: experts top-2, d_ff 32768, vocab 131072), 2 of its 64 layers — 45.8 GB
+#: of f32 weights; a third layer would need 65.5 — 4 × 2048-token prompts
+#: (T = 8192: capacity 2560 an expert) + LM_NEW steps; check (b) on one of
+#: the four sequences (dense dispatch materialises [T, E, d_ff]); card vs
+#: CPU at 1 layer on 256 tokens (a ≈ 26 GB host copy)
+MOE_CONFIG = dataclasses.replace(LMR.get_config("grok-1-314b"), num_layers=2)
+MOE_PROMPT = 2048
+MOE_CPU = (1, 256, 4, 0)
+#: the interleaved-pair phase: llama4-maverick at full matrix widths (d
+#: 5120, 40/8 heads of 128, d_ff 8192, vocab 202048, top-1 + a shared
+#: expert), one (dense, MoE) pair = 2 of its 48 layers, 64 of its 128
+#: experts — 42.1 GB of f32 weights; all 128 would be 74.3 — 4 × 2048
+#: tokens (capacity int(1.25·8192/64) = 160); card vs CPU with 8 experts
+PAIR_CONFIG = dataclasses.replace(LMR.get_config("llama4-maverick-400b-a17b"),
+                                  num_layers=2, num_experts=64)
+PAIR_CPU = (2, 256, 4, 0)
+PAIR_CPU_EXPERTS = 8
+#: the RWKV6 phase: rwkv6-3b at full width and depth (32 layers, d 2560, 40
+#: heads of 64; 12.3 GB of f32 weights), 4 × 2048-token prompts (32 WKV
+#: chunks of WKV_CHUNK) + LM_NEW steps. Lengths stay multiples of
+#: WKV_CHUNK: the reference's chunk rule runs any other length as one
+#: chunk, a [B, T, T, H, 64] tensor (≈ 170 GB at 2047 tokens)
+RWKV_CONFIG = LMR.get_config("rwkv6-3b")
+RWKV_PROMPT = 2048
+RWKV_CPU = (2, 256, 4, 0)
+WKV_CHUNK = 64
 #: (a) kernel path vs twin path and (c) card vs CPU: max |logit
 #: difference| over the largest |logit|, the unit of (b)'s 2e-3 / 5e-3
 LM_TOL = 2e-3
@@ -343,7 +397,8 @@ SPLIT_TF32_PRODUCTS = 3
 PREFILL_TOL = 1e-4
 #: the flash_attention cases timed as well as checked: the launch shapes
 #: of the hybrid and encoder-decoder paths
-PATH_CASES = ("whisper encoder", "cross prefill", "cross decode", "hymba ring decode")
+PATH_CASES = ("whisper encoder", "cross prefill", "cross decode", "hymba ring decode",
+              "grok prefill", "grok decode", "llama4 decode")
 #: postings_merge's edge cases: C (the path's rows folded into [0, C))
 MERGE_EDGES = (131071, 45, 1)
 
@@ -1720,6 +1775,12 @@ def _flash_cases():
         ("cross prefill", (B, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0, f32, f32),
         ("cross decode", (B, 12, 12, 1, ENCDEC_FRAMES, 64), False, 0, f32, bf16),
         ("hymba ring decode", (B, 25, 5, 1, 1024, 64), False, 0, f32, bf16),
+        # head dim 128 inside a model (the MoE paths): grok's prefill and
+        # split-key decode (48 query heads on 8 bf16 KV heads, group 6), and
+        # llama4's decode (group 5)
+        ("grok prefill", (B, 48, 8, MOE_PROMPT, MOE_PROMPT, 128), True, 0, f32, f32),
+        ("grok decode", (B, 48, 8, 1, MOE_PROMPT + LM_NEW, 128), False, 0, f32, bf16),
+        ("llama4 decode", (B, 40, 8, 1, MOE_PROMPT + LM_NEW, 128), False, 0, f32, bf16),
     ]
 
 
@@ -1728,17 +1789,21 @@ def _flash_path_row(rng, dev, what, shape, causal, window, qdt, kvdt):
     events, the profiler's device time, its twin, its bound (split-TF32 on
     the tensor cores for ``flash_fwd``, float32 CUDA cores for the split-key
     kernel) and one SDPA call (on the cache cast to float32 outside the
-    timed window where K/V are bf16). The path shapes are unmasked, so
-    every (query, key) pair counts."""
+    timed window where K/V are bf16). The path shapes have no window: a
+    causal one counts the (query, key) pairs its mask keeps (queries
+    right-aligned), any other every pair."""
     B, Hq, Hkv, Lq, Lk, D = shape
     q, k, v = _flash_args(rng, dev, *shape, qdt=qdt, kvdt=kvdt)
     kern = lambda: FA.flash_attention(q, k, v, causal=causal, window=window)
     k32, v32 = k.float(), v.float()
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k32, v32, is_causal=causal, enable_gqa=True)
+    if causal and Lq != Lk:
+        fail(f"{what}: SDPA's is_causal is left-aligned; a path shape has Lq == Lk")
     check_close(f"SDPA at the {what} shape", [sdpa()], [kern()], FLASH_TOL[qdt])
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-    nops = 4.0 * B * Hq * D * Lq * Lk
+    pairs = Lq * (Lq + 1) / 2 if causal else Lq * Lk
+    nops = 4.0 * B * Hq * D * pairs
     split_key = Lq * (Hq // Hkv) <= FA.SPLIT_ROWS
     b, by = (bound_ms(nbytes, nops) if split_key
              else bound_ms(nbytes, SPLIT_TF32_PRODUCTS * nops, TF32_OPS_S))
@@ -1817,11 +1882,18 @@ def phase_flash(dev):
                          bound_ms=b, bound_by=by)
     row["shapes"] = {c[0]: _flash_path_row(rng, dev, *c) for c in _flash_cases()
                      if c[0] in PATH_CASES}
+    # the head-dim-128 instantiations the MoE paths run: registers, spills
+    d128 = {}
+    for entry, ln in _ptxas("flash_attention"):
+        if "ILi128E" in entry:
+            d128.setdefault(entry, []).append(ln)
+    row["d128_ptxas"] = {e: " / ".join(v) for e, v in d128.items()}
     say(f"flash_attention: {len(_flash_cases())} shapes (the LM path's prefill and "
         f"decode, the reference sweep, hymba's 25/5 heads with window 1024 and "
         f"without, Lq = Lk = 37, Lq = 1, Lq > Lk, decode over 2017 keys, hymba's "
         f"decode with window 1024, 4 positions × 4 heads, whisper's encoder, cross "
-        f"prefill and cross decode, hymba's ring decode) — each matches its twin (max "
+        f"prefill and cross decode, hymba's ring decode, grok's head-dim-128 prefill and "
+        f"decode, llama4's decode) — each matches its twin (max "
         f"|diff| {worst}; prefill {prefill_err}); prefill {row['ms']:.4f} ms events, "
         f"{row['device_ms']} ms "
         f"device, twin {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
@@ -1845,12 +1917,13 @@ def twin_attention():
         ops.flash_attention = saved
 
 
-def _greedy(params, cfg, prompt, steps, forced=None, frames=None):
+def _greedy(params, cfg, prompt, steps, forced=None, frames=None, **kw):
     """prefill + ``steps`` decode steps; each step feeds the last step's
-    argmax, or ``forced[:, t]`` when given; ``frames``: an encoder's input.
-    Returns the prefill logits, each step's logits, the fed tokens [B,
-    steps] and the cache."""
-    kw = {} if frames is None else dict(frames=frames)
+    argmax, or ``forced[:, t]`` when given; ``frames``: an encoder's input;
+    ``kw``: prefill's options (``moe_dense``). Returns the prefill logits,
+    each step's logits, the fed tokens [B, steps] and the cache."""
+    if frames is not None:
+        kw["frames"] = frames
     lg, cache = TT.prefill(params, cfg, prompt, max_new_tokens=steps, **kw)
     first, logits, fed = lg[:, -1], [], []
     cur = lg[:, -1]
@@ -1865,20 +1938,17 @@ def _greedy(params, cfg, prompt, steps, forced=None, frames=None):
 
 def _cache_fields(cache):
     """(layer, field, tensor) of every tensor field of every layer of a
-    decode cache, stacked or a tuple of layers (the parent's package's
-    stacked k, v, kpos too, for ``--speed``)."""
+    decode cache, stacked or a tuple of layers (also the parent's package's
+    `LayerCache`, for ``--speed``)."""
     layers = cache.layers
+    names = [f.name for f in dataclasses.fields(layers[0] if isinstance(layers, tuple)
+                                                else layers)]
     if isinstance(layers, tuple):
-        views = list(enumerate(layers))
-    else:
-        views = [(li, None) for li in range(layers.k.shape[0])]
-    out = []
-    for li, c in views:
-        for f in ("k", "v", "kpos", "ssm_h", "ssm_tail", "xk", "xv"):
-            t = getattr(layers if c is None else c, f, None)
-            if t is not None:
-                out.append((li, f, t if c is not None else t[li]))
-    return out
+        return [(li, f, getattr(c, f)) for li, c in enumerate(layers) for f in names
+                if getattr(c, f) is not None]
+    set_ = [f for f in names if getattr(layers, f) is not None]
+    return [(li, f, getattr(layers, f)[li])
+            for li in range(getattr(layers, set_[0]).shape[0]) for f in set_]
 
 
 def _compare_caches(what, got, want):
@@ -1889,9 +1959,9 @@ def _compare_caches(what, got, want):
     worst = 0.0
     for (li, f, a), (_, _, b) in zip(g, w):
         a, b = a.cpu(), b.cpu()
-        if f == "kpos":
+        if f.startswith("kpos"):
             if not torch.equal(a, b):
-                fail(f"{what}: layer {li}'s cache positions differ")
+                fail(f"{what}: layer {li}'s cache positions ({f}) differ")
             continue
         worst = max(worst, check_close(f"{what} (layer {li} {f})", [a.float()], [b.float()],
                                        FLASH_TOL[torch.bfloat16]))
@@ -1924,7 +1994,8 @@ class LMPath:
     served at full width, prompts × prompt tokens (an encoder–decoder: ×
     ``frames`` encoder frames too, the prompt the first target tokens),
     greedy steps, and the card-vs-CPU check's (layers, prompt tokens,
-    steps, frames)."""
+    steps, frames) and other changes to the config (``cpu_changes``);
+    ``check_b_batch``: the sequences check (b) runs (0: all)."""
     line: str
     cfg: object
     batch: int
@@ -1932,6 +2003,8 @@ class LMPath:
     new: int
     cpu: tuple
     frames: int = 0
+    check_b_batch: int = 0
+    cpu_changes: tuple = ()
 
 
 def _lm_inputs(cfg, batch, prompt, frames, seed, step, dev):
@@ -1946,13 +2019,13 @@ def _lm_inputs(cfg, batch, prompt, frames, seed, step, dev):
             torch.from_numpy(b["frames"][0]).to(dev))
 
 
-def _scan_ms(fn):
-    """One call of ``fn`` with the SSM (`ssm.mamba`) and its doubling scan
-    (`ssm._doubling_scan`) each bracketed by CUDA events: (ms in the SSM,
-    ms in the scan), summed over their calls."""
+def _spans_ms(fn, names):
+    """One call of ``fn`` with each of the functions ``names`` of
+    `repro_torch.models.ssm` bracketed by CUDA events: the ms in each,
+    summed over its calls."""
     from repro_torch.models import ssm as SM
-    spans = {"mamba": [], "_doubling_scan": []}
-    saved = {name: getattr(SM, name) for name in spans}
+    spans = {name: [] for name in names}
+    saved = {name: getattr(SM, name) for name in names}
 
     def bracket(name):
         def call(*args, **kw):
@@ -1964,7 +2037,7 @@ def _scan_ms(fn):
             return out
         return call
 
-    for name in spans:
+    for name in names:
         setattr(SM, name, bracket(name))
     try:
         fn()
@@ -1972,7 +2045,43 @@ def _scan_ms(fn):
     finally:
         for name, f in saved.items():
             setattr(SM, name, f)
-    return tuple(sum(e0.elapsed_time(e1) for e0, e1 in spans[n]) for n in spans)
+    return [sum(e0.elapsed_time(e1) for e0, e1 in spans[n]) for n in names]
+
+
+def _moe_drops(fn):
+    """One call of ``fn`` counting MoE capacity dispatch
+    (`layers.slots`): (slots dispatched, slots dropped, the capacities),
+    summed over its MoE layers."""
+    from repro_torch.models import layers as LY
+    saved, seen = LY.slots, []
+
+    def counted(experts, E, C):
+        out = saved(experts, E, C)
+        seen.append((out[2].numel(), (~out[2]).sum(), C))
+        return out
+
+    LY.slots = counted
+    try:
+        fn()
+    finally:
+        LY.slots = saved
+    return (sum(n for n, _, _ in seen), int(sum(int(d) for _, d, _ in seen)),
+            sorted({c for _, _, c in seen}))
+
+
+def _mem_available() -> int:
+    """The host's MemAvailable, bytes."""
+    with open("/proc/meminfo") as fh:
+        for ln in fh:
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) * 1024
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def _is_pair(cfg) -> bool:
+    """llama4: each layer of the stack is a (dense, MoE) pair with two
+    attentions."""
+    return cfg.num_experts > 0 and cfg.moe_every == 2
 
 
 def _serve_lm(dev, path: LMPath):
@@ -1980,8 +2089,10 @@ def _serve_lm(dev, path: LMPath):
     prompts, prefill and ``path.new`` greedy decode steps through the
     attention kernel, with every launch count at 0 just before and read
     just after; then checks (a) twin path, (b) prefill/decode against
-    forward_logits in float32 and (c) card against the CPU plain path at
-    ``path.cpu[0]`` layers. Prints the path's JSON line; returns the
+    forward_logits in float32 (MoE: both with ``moe_dense=True``, since
+    capacity depends on the tokens of a call) and, after the profile and
+    with the served weights released, (c) card against the CPU plain path
+    at ``path.cpu[0]`` layers. Prints the path's JSON line; returns the
     launches."""
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matrix products are on: the reference computes in float32")
@@ -2020,18 +2131,27 @@ def _serve_lm(dev, path: LMPath):
     peak = torch.cuda.max_memory_allocated()
     steps, fed = torch.stack(steps, 1), torch.cat(fed, 1)
     windows = TT.layer_windows(cfg)
-    L, X = len(windows), 2 if cfg.cross_attention else 1
+    # attention launches of a layer of the stack: none for RWKV6, two for a
+    # llama4 pair or a decoder layer with cross-attention, else one
+    L, pair = len(windows), _is_pair(cfg)
+    X = 0 if cfg.attention_free else 1 + int(bool(cfg.cross_attention)) + int(pair)
     want = cfg.encoder_layers + L * X * (1 + N)
     if launches["flash_attention"] != want:
         fail(f"the {path.line} path launched flash_attention {launches['flash_attention']} "
              f"times, expected {cfg.encoder_layers} + {L * X} × (1 + {N}) = {want}")
     if not (bool(torch.isfinite(first).all()) and bool(torch.isfinite(steps).all())):
         fail(f"the {path.line} path's logits are not finite")
-    ks = [t for _, f, t in _cache_fields(cache) if f == "k"]
-    lens = [int(w) if w > 0 else P + N for w in windows]
-    if cache.pos != P + N or [tuple(k.shape) for k in ks] != [
-            (B, W, cfg.num_kv_heads, cfg.head_dim) for W in lens]:
-        fail(f"the {path.line} cache is at {cache.pos} with k {[tuple(k.shape) for k in ks]}")
+    fields = _cache_fields(cache)
+    if cfg.rwkv:
+        hd = cfg.rwkv_head_dim
+        got = [tuple(t.shape) for _, f, t in fields if f == "rwkv_s"]
+        shapes = [(B, cfg.d_model // hd, hd, hd)] * L
+    else:
+        got = [tuple(t.shape) for _, f, t in fields if f in ("k", "k2")]
+        shapes = [(B, int(w) if w > 0 else P + N, cfg.num_kv_heads, cfg.head_dim)
+                  for w in windows for _ in range(1 + int(pair))]
+    if cache.pos != P + N or got != shapes:
+        fail(f"the {path.line} cache is at {cache.pos} with state shapes {got}")
 
     # (a) the same calls with every attention on the twin
     ops.reset_launches()
@@ -2044,39 +2164,32 @@ def _serve_lm(dev, path: LMPath):
         fail(f"(a) {path.line}: kernel path vs twin path: logits differ by {err_a} of the largest")
     cache_err = _compare_caches(f"(a) {path.line}: the kernel path's cache vs the twin path's",
                                 cache, t_cache)
-    del t_cache
+    del t_cache, t_first, t_steps
 
-    # (b) the reference's consistency check at full width, in float32
+    # (b) the reference's consistency check at full width, in float32, on
+    # the first check_b_batch sequences; MoE dense on both sides; RWKV6's
+    # full sequence padded to whole WKV chunks (causal: the padding reaches
+    # no compared position)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    seq = torch.cat([toks, fed], 1)
-    full = TT.forward_logits(params, cfg32, {"tokens": seq} if frames is None
-                             else {"frames": frames, "target_tokens": seq})
-    full = (full[:, P - 1], full[:, P:])
-    f_first, f_steps, _, f_cache = _greedy(params, cfg32, toks, N, forced=fed, frames=frames)
+    Bb = path.check_b_batch or B
+    moe = dict(moe_dense=True) if cfg.num_experts else {}
+    seq = torch.cat([toks[:Bb], fed[:Bb]], 1)
+    if cfg.rwkv and seq.shape[1] % WKV_CHUNK:
+        seq = torch.cat([seq, seq[:, -1:].expand(-1, WKV_CHUNK - seq.shape[1] % WKV_CHUNK)], 1)
+    fr = None if frames is None else frames[:Bb]
+    full = TT.forward_logits(params, cfg32, {"tokens": seq} if fr is None
+                             else {"frames": fr, "target_tokens": seq}, **moe)
+    full = (full[:, P - 1], full[:, P:P + N])
+    f_first, f_steps, _, f_cache = _greedy(params, cfg32, toks[:Bb], N, forced=fed[:Bb],
+                                           frames=fr, **moe)
     err_b = (_rel(f_first, full[0]), _rel(f_steps, full[1]))
-    if any(t.dtype != torch.float32 for _, f, t in _cache_fields(f_cache) if f != "kpos"):
+    if any(t.dtype != torch.float32 for _, f, t in _cache_fields(f_cache)
+           if not f.startswith("kpos")):
         fail("(b) the float32 config's cache is not float32")
     if not (err_b[0] <= 2e-3 and err_b[1] <= 5e-3):
         fail(f"(b) {path.line}: prefill / decode vs forward_logits differ by {err_b} of the "
              f"largest logit (limits 2e-3, 5e-3)")
-    del full, f_cache
-
-    # (c) the card against the CPU plain path, full width at a cut depth
-    n_layers, cpu_prompt, cpu_steps, cpu_frames = path.cpu
-    cfg2 = dataclasses.replace(cfg, num_layers=n_layers, **(
-        dict(encoder_layers=n_layers, decoder_layers=n_layers) if cfg.encoder_layers else {}))
-    p2 = LMP.init_params(cfg2, SEED, device=dev)
-    p2_cpu = _tree(p2, lambda t: t.cpu())
-    t2, fr2 = _lm_inputs(cfg2, 1, cpu_prompt, cpu_frames, SEED, 1, "cpu")
-    c_first, c_steps, c_fed, c_cache = _greedy(
-        p2, cfg2, t2.to(dev), cpu_steps, frames=None if fr2 is None else fr2.to(dev))
-    h_first, h_steps, _, h_cache = _greedy(p2_cpu, cfg2, t2, cpu_steps, forced=c_fed.cpu(),
-                                           frames=fr2)
-    err_c = max(_rel(c_first.cpu(), h_first), _rel(c_steps.cpu(), h_steps))
-    if not err_c <= LM_TOL:
-        fail(f"(c) {path.line}: card vs CPU plain path: logits differ by {err_c} of the largest")
-    _compare_caches(f"(c) {path.line}: the card's cache vs the CPU's", c_cache, h_cache)
-    del p2, p2_cpu, c_cache, h_cache
+    del full, f_cache, f_first, f_steps
 
     # where the time goes: one prefill and one decode step under the profiler
     split_prefill = _kernel_split(lambda: TT.prefill(params, cfg, toks, max_new_tokens=N, **kw))
@@ -2093,30 +2206,77 @@ def _serve_lm(dev, path: LMPath):
         decode_tokens_s=B / float(np.mean(step_s)),
         peak_alloc_bytes=peak, resident_before_bytes=resident,
         flash_launches=launches["flash_attention"],
-        flash_launches_checks=checks_launched,
-        check_a_rel=err_a, check_a_cache_abs=cache_err, check_b_rel=list(err_b),
-        check_c_rel=err_c, prefill_profile_ms=split_prefill,
-        decode_profile_ms=split_decode)
+        flash_launches_checks=checks_launched)
     if cfg.encoder_layers:
         line.update(encoder_layers=cfg.encoder_layers, frames=path.frames,
                     prefill_frames_s=B * path.frames / t_prefill)
     if cfg.hybrid_ssm:
         # the SSM's and its scan's card time in one prefill and one decode
         # step ("other" in the profiles), by CUDA events around each call
-        ssm, scan = _scan_ms(lambda: TT.prefill(params, cfg, toks, max_new_tokens=N, **kw))
-        d_ssm, d_scan = _scan_ms(lambda: TT.decode_step(params, cfg, cache, tok))
+        names = ("mamba", "_doubling_scan")
+        ssm, scan = _spans_ms(lambda: TT.prefill(params, cfg, toks, max_new_tokens=N, **kw), names)
+        d_ssm, d_scan = _spans_ms(lambda: TT.decode_step(params, cfg, cache, tok), names)
         line.update(windows=sorted({int(w) for w in windows}),
                     ssm_chunks=P // SSM_CHUNK if P % SSM_CHUNK == 0 else 1,
                     prefill_ssm_ms=ssm, prefill_ssm_scan_ms=scan,
                     decode_ssm_ms=d_ssm, decode_ssm_scan_ms=d_scan)
+    if cfg.rwkv:
+        # the time mix's and its WKV's card time, likewise
+        names = ("rwkv_time_mix", "_rwkv_wkv_chunk")
+        tm, wkv = _spans_ms(lambda: TT.prefill(params, cfg, toks, max_new_tokens=N), names)
+        d_tm, d_wkv = _spans_ms(lambda: TT.decode_step(params, cfg, cache, tok), names)
+        line.update(wkv_chunks=P // WKV_CHUNK, prefill_time_mix_ms=tm, prefill_wkv_ms=wkv,
+                    decode_time_mix_ms=d_tm, decode_wkv_ms=d_wkv)
+    if cfg.num_experts:
+        slots, dropped, caps = _moe_drops(
+            lambda: TT.prefill(params, cfg, toks, max_new_tokens=N))
+        line.update(experts=[cfg.num_experts, cfg.experts_per_token],
+                    shared_expert=cfg.shared_expert, prefill_capacity=caps,
+                    prefill_slots=slots, prefill_dropped_slots=dropped,
+                    check_b_sequences=Bb)
+    del params, cache, lg, cur
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU plain path, full width at a cut depth
+    n_layers, cpu_prompt, cpu_steps, cpu_frames = path.cpu
+    cfg2 = dataclasses.replace(cfg, num_layers=n_layers, **dict(path.cpu_changes), **(
+        dict(encoder_layers=n_layers, decoder_layers=n_layers) if cfg.encoder_layers else {}))
+    need, avail = LMP.param_count(cfg2) * 4, _mem_available()
+    if avail < 1.25 * need:
+        fail(f"(c) {path.line}: the host has {avail} bytes available, the CPU copy of "
+             f"{n_layers} layers needs {need} and its activations")
+    p2 = LMP.init_params(cfg2, SEED, device=dev)
+    p2_cpu = _tree(p2, lambda t: t.cpu())
+    t2, fr2 = _lm_inputs(cfg2, 1, cpu_prompt, cpu_frames, SEED, 1, "cpu")
+    c_first, c_steps, c_fed, c_cache = _greedy(
+        p2, cfg2, t2.to(dev), cpu_steps, frames=None if fr2 is None else fr2.to(dev))
+    del p2
+    h_first, h_steps, _, h_cache = _greedy(p2_cpu, cfg2, t2, cpu_steps, forced=c_fed.cpu(),
+                                           frames=fr2)
+    err_c = max(_rel(c_first.cpu(), h_first), _rel(c_steps.cpu(), h_steps))
+    if not err_c <= LM_TOL:
+        fail(f"(c) {path.line}: card vs CPU plain path: logits differ by {err_c} of the largest")
+    _compare_caches(f"(c) {path.line}: the card's cache vs the CPU's", c_cache, h_cache)
+    del p2_cpu, c_cache, h_cache
+    torch.cuda.empty_cache()
+
+    line.update(check_a_rel=err_a, check_a_cache_abs=cache_err, check_b_rel=list(err_b),
+                check_c_rel=err_c, check_c_layers=n_layers, prefill_profile_ms=split_prefill,
+                decode_profile_ms=split_decode)
+    if path.cpu_changes:
+        line["check_c_changes"] = dict(path.cpu_changes)
     say(f"{path.line} " + json.dumps(line))
-    say(f"{path.line}: {cfg.name} ({L} layers, d {cfg.d_model}"
+    say(f"{path.line}: {cfg.name} ({L} {'pairs' if pair else 'layers'}, d {cfg.d_model}"
         + (f"; {cfg.encoder_layers} encoder layers over {path.frames} frames"
            if cfg.encoder_layers else "")
+        + (f"; {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+           f"{line['prefill_dropped_slots']} of {line['prefill_slots']} prefill slots dropped"
+           if cfg.num_experts else "")
         + f") served {B} × {P} tokens + {N} greedy steps with "
         f"{line['flash_launches']} flash_attention launches; (a) == twin path ({err_a:.3g} of "
-        f"the largest logit), (b) == forward_logits in float32 ({err_b[0]:.3g}, "
-        f"{err_b[1]:.3g}), (c) card == CPU plain path at {n_layers} layers ({err_c:.3g})")
+        f"the largest logit), (b) == forward_logits in float32 on {Bb} of {B} sequences "
+        f"({err_b[0]:.3g}, {err_b[1]:.3g}), (c) card == CPU plain path at {n_layers} layers "
+        f"({err_c:.3g})")
     return launches
 
 
@@ -2139,6 +2299,34 @@ def phase_lm_encdec(dev):
     context)."""
     return _serve_lm(dev, LMPath("lm_encdec", ENCDEC_CONFIG, LM_BATCH, ENCDEC_PROMPT, LM_NEW,
                                  ENCDEC_CPU, frames=ENCDEC_FRAMES))
+
+
+def phase_lm_moe(dev):
+    """grok-1 at full width, 2 of its 64 layers (45.8 GB of f32 weights):
+    4 prompts of 2048 tokens (capacity 2560 an expert; the line counts the
+    dropped slots), prefill and 32 greedy (dense-MoE) steps; check (b) on
+    one sequence, (c) at 1 layer."""
+    return _serve_lm(dev, LMPath("lm_moe", MOE_CONFIG, LM_BATCH, MOE_PROMPT, LM_NEW, MOE_CPU,
+                                 check_b_batch=1))
+
+
+def phase_lm_moe_pair(dev):
+    """llama4-maverick at full matrix widths: one (dense, MoE) pair with 64
+    of its 128 experts (42.1 GB of f32 weights), 4 prompts of 2048 tokens
+    (capacity 160), prefill and 32 greedy steps: two attentions a pair;
+    check (b) on one sequence, (c) with 8 experts."""
+    return _serve_lm(dev, LMPath("lm_moe_pair", PAIR_CONFIG, LM_BATCH, MOE_PROMPT, LM_NEW,
+                                 PAIR_CPU, check_b_batch=1,
+                                 cpu_changes=(("num_experts", PAIR_CPU_EXPERTS),)))
+
+
+def phase_lm_rwkv(dev):
+    """rwkv6-3b at full width and depth: 4 prompts of 2048 tokens (32 WKV
+    chunks of 64; every length here a multiple of 64, as the reference's
+    chunk rule runs any other as one [B, T, T, H, 64] chunk), prefill and
+    32 greedy steps; no attention, so no flash_attention launch."""
+    return _serve_lm(dev, LMPath("lm_rwkv", RWKV_CONFIG, LM_BATCH, RWKV_PROMPT, LM_NEW,
+                                 RWKV_CPU))
 
 
 def _leaves(tree):
@@ -2202,6 +2390,18 @@ def speed(parent: str) -> None:
     say(_card())
 
 
+def _ptxas(name: str):
+    """(entry function, line) of each registers / spill line of the
+    compiler's report on source ``name``."""
+    entry, out = "?", []
+    for ln in build.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "registers" in ln or "spill" in ln:
+            out.append((entry, ln.strip()))
+    return out
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2230,12 +2430,8 @@ def main(argv) -> None:
     ops.load_kernels(dev)
     say(f"build: {time.perf_counter() - t0:.2f} s")
     for name in build.SOURCES:
-        entry = "?"
-        for ln in build.build_log(name).splitlines():
-            if "Compiling entry function" in ln:
-                entry = ln.split("'")[1] if "'" in ln else ln.strip()
-            elif "registers" in ln or "spill" in ln:
-                say(f"  {name} {entry}: {ln.strip()}")
+        for entry, ln in _ptxas(name):
+            say(f"  {name} {entry}: {ln}")
 
     t0 = time.perf_counter()
     groups = corpus()
@@ -2289,11 +2485,12 @@ def main(argv) -> None:
                                        best, dev)["rank_transform"]
     timed("scheduler", phase_scheduler, index, groups, keys, vals, dev)
     rows.update(timed("flash_attention", phase_flash, dev))
-    # flash_attention's launches: the sum over the three LM paths
+    # flash_attention's launches: the sum over the six LM paths
     launches["flash_attention"] = sum(
         timed(name, fn, dev)["flash_attention"]
         for name, fn in (("lm", phase_lm), ("lm_hybrid", phase_lm_hybrid),
-                         ("lm_encdec", phase_lm_encdec)))
+                         ("lm_encdec", phase_lm_encdec), ("lm_moe", phase_lm_moe),
+                         ("lm_moe_pair", phase_lm_moe_pair), ("lm_rwkv", phase_lm_rwkv)))
     say("phases " + json.dumps(phases))
 
     kernels = []

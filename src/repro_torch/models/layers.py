@@ -1,4 +1,4 @@
-"""Transformer building blocks: norms, RoPE, GQA attention, MLP.
+"""Transformer building blocks: norms, RoPE, GQA attention, MLP, MoE.
 
 Plain functions over parameter subtrees of `repro_torch.models.params`, as
 ``repro.models.layers`` is. Attention runs the port's attention kernel
@@ -9,7 +9,7 @@ JAX promotes a bfloat16 operand of a product with a float32 one to float32;
 ``torch.matmul`` refuses mixed dtypes, so `matmul` makes that promotion
 explicit, at the places the reference's einsums make it. Elementwise
 operations promote the same way in both frameworks. Left out: the mesh
-constraints (``act_constrain``, a no-op without a mesh), MoE, and the
+constraints (``act_constrain``, a no-op without a mesh) and the
 query-chunked and local-window XLA attention paths, which the kernel
 replaces. RoPE's tables are computed once a forward (`rope`) and
 applied per layer (`apply_rope`), where the reference's ``rotary`` does
@@ -123,3 +123,126 @@ def mlp(x, p, act: str = "swiglu"):
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     return matmul(h, p["w_out"])
+
+
+# ----------------------------------------------------------------------------
+# Mixture of Experts (capacity dispatch, top-1 and top-2, shared expert)
+# ----------------------------------------------------------------------------
+
+#: the dense path runs its experts in groups of at most this many
+#: [tokens, d_ff] elements a group (one group at decode's few tokens)
+_DENSE_GROUP_ELEMS = 1 << 28
+
+
+def router(xt, w, K: int):
+    """Top-``K`` gates of tokens xt [T, d]: the router's logits in float32
+    whatever the stream's dtype, softmax, the K largest probabilities
+    renormalised by their sum (clamped at 1e-9). Returns (gates [T, K] f32,
+    experts [T, K] int64). Ties go to the lower expert index, as
+    ``jax.lax.top_k`` breaks them: a stable descending sort."""
+    probs = torch.softmax(torch.matmul(xt.to(torch.float32), w.to(torch.float32)), -1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :K], idx[:, :K]
+    return vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def slots(experts, E: int, C: int):
+    """Capacity dispatch of the (token, k) slots ``experts`` [T, K]: each
+    slot's place in its expert's queue is the running count over the flat
+    (t, k) order, and a place at or past ``C`` is dropped. Returns (the (E,
+    C) token table, sentinel T where no slot landed; each slot's row in
+    the flattened [E·C] expert outputs, E·C where dropped; the kept mask
+    [T, K])."""
+    T, K = experts.shape
+    e = experts.reshape(-1)
+    onehot = F.one_hot(e, E)                                          # [T·K, E]
+    pos = onehot.cumsum(0).gather(1, e[:, None])[:, 0] - 1
+    keep = pos < C
+    c = torch.where(keep, pos, C)
+    table = torch.full((E, C + 1), T, dtype=torch.int64, device=e.device)
+    # the dropped slots all land in column C, which is cut off
+    table[e, c] = torch.arange(T, device=e.device).repeat_interleave(K)
+    row = torch.where(keep, e * C + pos, E * C)
+    return table[:, :C], row.reshape(T, K), keep.reshape(T, K)
+
+
+def _experts(xin, p, act: str):
+    """Every expert's FFN over its rows xin [E, N, d] → [E, N, d]."""
+    h = matmul(xin, p["we_in"])
+    if "we_gate" in p:
+        h = F.silu(matmul(xin, p["we_gate"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return matmul(h, p["we_out"])
+
+
+def _shared(p) -> dict:
+    return {k[len("shared_"):]: v for k, v in p.items() if k.startswith("shared_")}
+
+
+def moe(x, p, cfg, *, capacity_factor: float = 1.25, dense: bool = False,
+        dispatch: str = "gather"):
+    """Mixture-of-experts FFN. x: [B, S, d] → [B, S, d].
+
+    * ``dispatch="gather"`` (default): the (E, C) token table of `slots`,
+      C = max(int(capacity_factor · K · T / E), 1); each expert's rows
+      gathered, its three products, each slot's output scaled by its gate;
+      a token sums its K slots in k order through its slot rows (no
+      scatter-add, so no order set by atomics).
+    * ``dispatch="einsum"``: the reference's one-hot formulation, [T, E, C]
+      dispatch and combine tensors; it drops the same slots.
+    * ``dense=True``: every expert on every token, gate-weighted, no drops
+      (decode's choice); experts in groups of `_DENSE_GROUP_ELEMS`.
+
+    A dropped slot adds nothing: the token keeps its residual only. A
+    shared expert (llama4) is a dense `mlp` added on top."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, d)
+    gates, experts = router(xt, p["router"], K)
+    act = cfg.mlp_act
+    if dense:
+        full = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+        full = full.scatter_(1, experts, gates).to(x.dtype)
+        G = max(1, min(E, _DENSE_GROUP_ELEMS // max(T * cfg.d_ff, 1)))
+        y = None
+        for e0 in range(0, E, G):
+            grp = {k: v[e0:e0 + G] for k, v in p.items() if k.startswith("we_")}
+            yo = _experts(xt[None], grp, act)                            # [G, T, d]
+            part = (yo * full[:, e0:e0 + G].T[..., None]).sum(0)
+            y = part if y is None else y + part
+    else:
+        C = max(int(capacity_factor * K * T / E), 1)
+        table, row, keep = slots(experts, E, C)
+        if dispatch == "einsum":
+            dt = x.dtype
+            # a kept slot's place in its expert's queue is its row mod C
+            pos_oh = F.one_hot(torch.where(keep, row % C, C), C + 1)[..., :C].to(dt)
+            e_oh = F.one_hot(experts, E).to(dt)                           # [T, K, E]
+            disp = torch.einsum("tke,tkc->tec", e_oh, pos_oh)
+            comb = torch.einsum("tke,tkc,tk->tec", e_oh, pos_oh, gates.to(dt))
+            yout = _experts(torch.einsum("tec,td->ecd", disp, xt), p, act)
+            y = torch.einsum("tec,ecd->td", comb.to(yout.dtype), yout)
+        else:
+            xin = torch.cat([xt, xt.new_zeros((1, d))])[table]           # [E, C, d]
+            yout = _experts(xin, p, act).reshape(E * C, d)
+            yout = torch.cat([yout, yout.new_zeros((1, d))])              # row E·C: dropped
+            contrib = yout[row] * gates.to(yout.dtype)[..., None]         # [T, K, d]
+            y = contrib[:, 0]
+            for k in range(1, K):
+                y = y + contrib[:, k]
+    y = y.reshape(B, S, d)
+    if "shared_w_in" in p:
+        y = y + mlp(x, _shared(p), act)
+    return y
+
+
+def moe_aux_loss(x, p, cfg):
+    """Load-balancing auxiliary loss (Switch): E · Σ_e f_e · p̄_e, f_e the
+    share of tokens whose top expert is e, p̄_e the mean router
+    probability."""
+    logits = torch.matmul(x.to(torch.float32), p["router"].to(torch.float32))
+    probs = torch.softmax(logits, -1)
+    f = F.one_hot(probs.argmax(-1), cfg.num_experts).to(torch.float32).mean((0, 1))
+    return cfg.num_experts * (f * probs.mean((0, 1))).sum()

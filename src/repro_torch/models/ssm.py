@@ -1,15 +1,17 @@
-"""Mamba-style selective SSM: hymba's parallel head.
+"""State-space sequence mixers: hymba's Mamba-style selective SSM and
+RWKV6.
 
-The port of the Mamba half of ``repro.models.ssm``, in the reference's
-chunked form: projections, discretisation (the ``[B, c, di, state]``
+The port of ``repro.models.ssm``, in the reference's chunked forms. Mamba: projections, discretisation (the ``[B, c, di, state]``
 tensors) and the scan all happen inside a loop over sequence chunks that
 carries the state, so peak memory is O(B · chunk · di · state) whatever
 the length. The reference's ``jax.lax.associative_scan`` over a chunk
 becomes a log-step (Hillis–Steele) doubling with the same combine,
-`_doubling_scan`; it differs from XLA's tree only in rounding order.
+`_doubling_scan`; it differs from XLA's tree only in rounding order. RWKV6: a loop over
+sequence chunks carries the [B, H, hd, hd] WKV state; inside a chunk the
+work is decay-matrix linear attention (`_rwkv_wkv_chunk`).
 
 Plain PyTorch: the reference computes all of this outside any Pallas
-kernel. RWKV6's time and channel mixing are not ported yet.
+kernel, in einsums and ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -131,3 +133,97 @@ def mamba_step(x1, p, cfg, state):
     y = y + xa[:, 0].to(torch.float32) * p["d_skip"].to(torch.float32)
     y = y[:, None].to(x1.dtype) * F.silu(z)
     return matmul(y, p["out_proj"]), (h, new_tail)
+
+
+# ----------------------------------------------------------------------------
+# RWKV6 ("Finch") time mix + channel mix
+# ----------------------------------------------------------------------------
+
+def _token_shift(x, prev):
+    """x: [B, S, d]; prev: [B, 1, d] (last token of the previous segment),
+    in the promoted dtype of the two (as JAX's concatenate)."""
+    dt = torch.promote_types(x.dtype, prev.dtype)
+    return torch.cat([prev.to(dt), x[:, :-1].to(dt)], dim=1)
+
+
+def _rwkv_wkv_chunk(r, k, v, logw, u, S0, chunk: int):
+    """Chunked WKV6 linear attention with data-dependent per-channel decay.
+
+    r/k/v: [B, T, H, hd]; logw: [B, T, H, hd] (≤ 0); u: [H, hd]; S0: [B,
+    H, hd, hd] carry. Returns y [B, T, H, hd] and the final state. The
+    reference's chunk rule: c = min(chunk, T), and one chunk of T when c
+    does not divide T (a [B, T, T, H, hd] pair tensor: keep long inputs to
+    multiples of ``chunk``)."""
+    B, T, H, hd = r.shape
+    c = min(chunk, T)
+    if T % c:
+        c = T
+    ar = torch.arange(c, device=r.device)
+    later = (ar[:, None] > ar[None, :])[None, :, :, None, None]          # i < t
+    S, ys = S0, []
+    for c0 in range(0, T, c):
+        rc, kc, vc, lwc = (t[:, c0:c0 + c] for t in (r, k, v, logw))
+        P = torch.cumsum(lwc, dim=1) - lwc                               # Σ_{j<t}
+        Pw = P + lwc                                                     # Σ_{j≤t}
+        Ptot = Pw[:, -1]
+        # inter-chunk: y_t += (r_t ⊙ e^{P_t}) · S
+        y = torch.einsum("bthi,bhij->bthj", rc * torch.exp(P), S)
+        # intra-chunk: pair (t, i < t) decays by e^{P_t − (P_i + w_i)}
+        dec = torch.exp(torch.where(later, P[:, :, None] - Pw[:, None, :], -torch.inf))
+        scores = dec.mul_(kc[:, None]).mul_(rc[:, :, None]).sum(-1)      # [B, t, i, H]
+        y = y + torch.einsum("btih,bihd->bthd", scores, vc)
+        # bonus diagonal: (r_t · (u ⊙ k_t)) v_t
+        y = y + (rc * u * kc).sum(-1, keepdim=True) * vc
+        # S' = e^{Ptot} ⊙ S + Σ_i e^{Ptot − P_{i+1}} k_i v_iᵀ
+        decs = torch.exp(Ptot[:, None] - Pw)
+        S = torch.exp(Ptot)[..., None] * S + torch.einsum("bihd,bihe->bhde", kc * decs, vc)
+        ys.append(y)
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), S
+
+
+def rwkv_time_mix(x, p, cfg, *, prev_x=None, state=None, chunk: int = 64):
+    """RWKV6 time mix over a sequence x [B, S, d] from ``prev_x`` [B, 1,
+    d] (the previous segment's last input) and the WKV ``state`` [B, H,
+    hd, hd] f32 (zeros by default) → (out [B, S, d], (x's last token, the
+    new state)). The decay LoRA and the WKV in float32, logw = −exp(lw);
+    a per-head group norm (eps 64e-5) and the SiLU gate."""
+    B, S, d = x.shape
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    if prev_x is None:
+        prev_x = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
+    if state is None:
+        state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    xx = _token_shift(x, prev_x)
+
+    def mix(mu):
+        return x + (xx - x) * mu
+
+    f32 = torch.float32
+    r = matmul(mix(p["mu_r"]), p["wr"]).reshape(B, S, H, hd)
+    k = matmul(mix(p["mu_k"]), p["wk_"]).reshape(B, S, H, hd)
+    v = matmul(mix(p["mu_v"]), p["wv_"]).reshape(B, S, H, hd)
+    g = F.silu(matmul(mix(p["mu_g"]), p["wg"]))
+    lw = p["decay_w0"] + torch.einsum("bsd,dl,le->bse", torch.tanh(mix(p["mu_w"]).to(f32)),
+                                      p["decay_w1"].to(f32), p["decay_w2"].to(f32))
+    logw = -torch.exp(lw.to(f32)).reshape(B, S, H, hd)                   # log decay ≤ 0
+    y, S_fin = _rwkv_wkv_chunk(r.to(f32), k.to(f32), v.to(f32), logw,
+                               p["bonus_u"].to(f32), state, chunk)
+    # per-head group norm (ln_x) + output gating
+    var, mu = torch.var_mean(y, -1, correction=0, keepdim=True)
+    y = ((y - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, d) * p["ln_x"]
+    y = y.to(x.dtype) * g
+    return matmul(y, p["w_out"]), (x[:, -1:], S_fin)
+
+
+def rwkv_channel_mix(x, p, *, prev_x=None):
+    """RWKV6 channel mix of x [B, S, d] from ``prev_x`` [B, 1, d] →
+    (out, x's last token): squared-ReLU key, sigmoid receptance."""
+    B, S, d = x.shape
+    if prev_x is None:
+        prev_x = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
+    xx = _token_shift(x, prev_x)
+    k = torch.relu(matmul(x + (xx - x) * p["cm_mu_k"], p["cm_wk"])).square()
+    kv = matmul(k, p["cm_wv"])
+    r = torch.sigmoid(matmul(x + (xx - x) * p["cm_mu_r"], p["cm_wr"]))
+    return r * kv, x[:, -1:]

@@ -1,29 +1,40 @@
 """Model assembly: full forward, prefill and cached decode.
 
-The port of ``repro.models.transformer`` for the dense family (tinyllama,
-qwen1.5's QKV bias, phi3's MHA, starcoder2's GELU MLP, llava-next's
-Mistral backbone with its prefix-embedding adapter), hymba's hybrid layers
+The port of ``repro.models.transformer`` for every family of the registry:
+the dense family (tinyllama, qwen1.5's QKV bias, phi3's MHA, starcoder2's
+GELU MLP, llava-next's Mistral backbone with its prefix-embedding
+adapter), MoE (grok-1's MoE FFN in every layer; llama4's interleaved
+pairs: a dense layer, then a second attention and an MoE FFN, with a
+shared expert; `repro_torch.models.layers.moe`), hymba's hybrid layers
 (attention ∥ a Mamba SSM, `repro_torch.models.ssm`, sliding-window layers
-among full-attention ones) and whisper's encoder–decoder (a non-causal
-encoder; decoder layers with cross-attention to its output). Every
-attention runs the port's attention kernel
-(`repro_torch.models.layers.attend`). MoE and RWKV6 raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+among full-attention ones), RWKV6 (attention-free: time mix and channel
+mix, `ssm.rwkv_time_mix`, `ssm.rwkv_channel_mix`) and whisper's
+encoder–decoder (a non-causal encoder; decoder layers with
+cross-attention to its output). Every attention runs the port's attention
+kernel (`repro_torch.models.layers.attend`).
 
 Paths:
   * ``forward_logits`` — full-sequence logits, the reference the cache is
     checked against.
   * ``prefill``        — a prompt's last-token logits and its decode cache:
-    K/V in the reference's ring layout (slot = position mod W, per layer),
-    the SSM state, the cross-attention K/V.
-  * ``decode_step``    — one token per sequence against the cache.
+    K/V in the reference's ring layout (slot = position mod W, per layer;
+    a pair's second attention in k2/v2), the SSM and RWKV states, the
+    cross-attention K/V.
+  * ``decode_step``    — one token per sequence against the cache. MoE
+    layers run dense (every expert, gate-weighted), as the reference's.
+
+MoE capacity depends on the tokens of a call (`layers.moe`): a prompt and
+the full sequence drop different slots, so prefill and decode agree with
+``forward_logits`` only with ``moe_dense=True`` on both sides.
 
 Unlike the reference, whose arrays are immutable, ``decode_step`` writes
 the new token's K/V into the cache's tensors in place (a serving cache is
 too large to copy every step) and returns the cache with ``pos`` advanced;
 ``pos`` is a host integer, so no step waits on the device for it. The SSM
 state is small and is replaced, not written in place: its conv tail keeps
-the stream's dtype, as in the reference, whatever the cache's.
+the stream's dtype, as in the reference, whatever the cache's. RWKV6's
+state is written in place (a stacked cache holds it): its token-shift
+inputs in the cache's dtype, the WKV state in float32.
 """
 from __future__ import annotations
 
@@ -37,22 +48,6 @@ from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as LY
 from repro_torch.models import ssm as SM
-
-#: families that wait for later slices, with the ROADMAP item (queue 1)
-#: that ports them
-_LATER = (
-    (lambda c: c.num_experts > 0, "MoE layers (grok-1, llama4)", 2, "MoE layers"),
-    (lambda c: c.rwkv, "RWKV6 time and channel mixing", 3, "RWKV6"),
-)
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    for test, what, item, title in _LATER:
-        if test(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet (ROADMAP queue 1 "
-                f"item {item}, \"{title}\")")
-
 
 # ----------------------------------------------------------------------------
 # per-layer metadata (per-layer window values for SWA archs)
@@ -128,20 +123,34 @@ def _mixer(x, p, cfg: ModelConfig, cs, window, causal=True):
     return att * p["mix_attn"] + sout * p["mix_ssm"]
 
 
-def _ffn(x, p, cfg: ModelConfig):
+def _ffn(x, p, cfg: ModelConfig, moe_dense: bool = False):
+    """A layer's FFN: the MLP, or (grok-1) the MoE FFN."""
+    if "moe" in p and "mlp" not in p:
+        return LY.moe(x, p["moe"], cfg, dense=moe_dense)
     return LY.mlp(x, p["mlp"], cfg.mlp_act)
 
 
-def block(x, p, cfg: ModelConfig, *, cs, window, causal=True, enc_out=None):
-    """One transformer layer: pre-norm mixer, then (a decoder layer given
-    ``enc_out``) pre-norm cross-attention to it, then pre-norm MLP, each
-    added to the residual stream; ``cs``: the RoPE tables (`layers.rope`)
-    of the positions."""
-    x = x + _mixer(LY.rms_norm(x, p["ln1"], cfg.norm_eps), p, cfg, cs, window, causal)
+def block(x, p, cfg: ModelConfig, *, cs, window, causal=True, enc_out=None,
+          moe_dense: bool = False):
+    """One transformer layer, or one llama4 pair: pre-norm mixer, then (a
+    decoder layer given ``enc_out``) pre-norm cross-attention to it, then
+    pre-norm FFN, each added to the residual stream; a pair continues with
+    pre-norm ``attn2`` and pre-norm MoE. RWKV6: time mix, then channel mix.
+    ``cs``: the RoPE tables (`layers.rope`) of the positions."""
+    h = LY.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.rwkv:
+        x = x + SM.rwkv_time_mix(h, p, cfg)[0]
+        return x + SM.rwkv_channel_mix(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p)[0]
+    x = x + _mixer(h, p, cfg, cs, window, causal)
     if enc_out is not None:
         x = x + LY.attention(LY.rms_norm(x, p["ln_x"], cfg.norm_eps), p["xattn"],
                              cfg, kv=enc_out, causal=False)
-    return x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg)
+    x = x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg, moe_dense)
+    if "ln3" in p:  # interleaved dense + MoE pair (llama4)
+        x = x + LY.attention(LY.rms_norm(x, p["ln3"], cfg.norm_eps), p["attn2"], cfg,
+                             cs=cs, causal=causal, window=window)
+        x = x + LY.moe(LY.rms_norm(x, p["ln4"], cfg.norm_eps), p["moe"], cfg, dense=moe_dense)
+    return x
 
 
 def encode(params, cfg: ModelConfig, frames):
@@ -164,12 +173,12 @@ def _decoder(params, cfg: ModelConfig) -> dict:
 # full forward
 # ----------------------------------------------------------------------------
 
-def forward_logits(params, cfg: ModelConfig, batch) -> torch.Tensor:
+def forward_logits(params, cfg: ModelConfig, batch, moe_dense: bool = False) -> torch.Tensor:
     """Full-sequence logits [B, S, V] f32 (validation + serving prefill
     comparisons). ``batch``: ``tokens`` [B, S] and, for a prefix adapter,
     ``prefix_embeds`` [B, P, d]; for an encoder–decoder, ``frames`` [B,
-    S_src, d] and ``target_tokens`` [B, S]."""
-    _require_ported(cfg)
+    S_src, d] and ``target_tokens`` [B, S]. ``moe_dense``: MoE layers run
+    every expert (`layers.moe`)."""
     if cfg.encoder_layers > 0:
         enc_out = encode(params, cfg, batch["frames"])
         tokens = batch["target_tokens"]
@@ -182,7 +191,7 @@ def forward_logits(params, cfg: ModelConfig, batch) -> torch.Tensor:
                                  device=tokens.device)[None, :])
     for li, w in enumerate(layer_windows(cfg)):
         x = block(x, _layer(_decoder(params, cfg), li), cfg, cs=cs, window=int(w),
-                  enc_out=enc_out)
+                  enc_out=enc_out, moe_dense=moe_dense)
     return lm_head(params, cfg, x)
 
 
@@ -193,19 +202,32 @@ def forward_logits(params, cfg: ModelConfig, batch) -> torch.Tensor:
 @dataclasses.dataclass
 class LayerCache:
     """One layer's cache, or every layer's stacked along a leading [L]
-    axis. k and v [B, W, Hkv, hd] in the reference's ring layout (position
-    p at slot p mod W; W = the window, or the full length), kpos [W] the
-    absolute position held by each slot (−1 empty); hymba's SSM state,
-    ssm_h [B, di, st] f32 and ssm_tail [B, K − 1, di]; whisper's
-    cross-attention xk, xv [B, S_src, Hkv, hd]. The reference's RWKV and
-    second-attention fields come with their families."""
-    k: torch.Tensor
-    v: torch.Tensor
-    kpos: torch.Tensor
+    axis; a field a family does not use is None. k and v [B, W, Hkv, hd]
+    in the reference's ring layout (position p at slot p mod W; W = the
+    window, or the full length), kpos [W] the absolute position held by
+    each slot (−1 empty); k2, v2, kpos2 the same for a llama4 pair's second
+    attention; hymba's SSM state, ssm_h [B, di, st] f32 and ssm_tail [B,
+    K − 1, di]; RWKV6's WKV state rwkv_s [B, H, hd, hd] f32 and its time-
+    and channel-mix token-shift inputs rwkv_prev_tm, rwkv_prev_cm [B, 1,
+    d]; whisper's cross-attention xk, xv [B, S_src, Hkv, hd]."""
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
+    kpos: Optional[torch.Tensor] = None
+    k2: Optional[torch.Tensor] = None
+    v2: Optional[torch.Tensor] = None
+    kpos2: Optional[torch.Tensor] = None
     ssm_h: Optional[torch.Tensor] = None
     ssm_tail: Optional[torch.Tensor] = None
+    rwkv_s: Optional[torch.Tensor] = None
+    rwkv_prev_tm: Optional[torch.Tensor] = None
+    rwkv_prev_cm: Optional[torch.Tensor] = None
     xk: Optional[torch.Tensor] = None
     xv: Optional[torch.Tensor] = None
+
+    def tensors(self):
+        """(field name, tensor) of every field that is set."""
+        return [(f.name, getattr(self, f.name)) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None]
 
 
 @dataclasses.dataclass
@@ -218,10 +240,19 @@ class DecodeCache:
 
 def _layer_cache(cfg: ModelConfig, B: int, W: int, S_src: int, dtype, dev,
                  lead: tuple = ()) -> LayerCache:
-    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    Hkv, hd, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     zeros = lambda *shape, dt=dtype: torch.zeros(lead + shape, dtype=dt, device=dev)
-    c = LayerCache(k=zeros(B, W, Hkv, hd), v=zeros(B, W, Hkv, hd),
-                   kpos=torch.full(lead + (W,), -1, dtype=torch.int32, device=dev))
+    ring = lambda: (zeros(B, W, Hkv, hd), zeros(B, W, Hkv, hd),
+                    torch.full(lead + (W,), -1, dtype=torch.int32, device=dev))
+    c = LayerCache()
+    if cfg.rwkv:
+        H, rhd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        c.rwkv_s = zeros(B, H, rhd, rhd, dt=torch.float32)
+        c.rwkv_prev_tm, c.rwkv_prev_cm = zeros(B, 1, d), zeros(B, 1, d)
+        return c
+    c.k, c.v, c.kpos = ring()
+    if cfg.num_experts > 0 and cfg.moe_every == 2:   # llama4's (dense, MoE) pairs
+        c.k2, c.v2, c.kpos2 = ring()
     if cfg.hybrid_ssm:
         c.ssm_h = zeros(B, cfg.ssm_inner, cfg.ssm_state, dt=torch.float32)
         c.ssm_tail = zeros(B, cfg.ssm_conv - 1, cfg.ssm_inner)
@@ -236,10 +267,9 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     """An empty cache of ``cfg.dtype`` for ``batch`` sequences:
     full-attention layers hold ``max_len`` positions, windowed layers a
     ring of their window; cross-attention K/V hold ``source_len`` encoder
-    positions (default ``cfg.max_source_len``). Stacked when every layer's
-    shapes agree, else a tuple of per-layer caches (the reference's
-    layouts)."""
-    _require_ported(cfg)
+    positions (default ``cfg.max_source_len``); RWKV6 layers hold their
+    state, the WKV's in float32. Stacked when every layer's shapes agree,
+    else a tuple of per-layer caches (the reference's layouts)."""
     dtype, dev = _dtype(cfg), D.resolve(device)
     lens = [int(w) if w > 0 else max_len for w in layer_windows(cfg)]
     S_src = cfg.max_source_len if source_len is None else source_len
@@ -253,30 +283,49 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _per_layer(layers) -> Tuple[LayerCache, ...]:
     """Each layer's cache: the tuple's own, or views into the stacked one
     (writes into their tensors write the cache; a stacked cache holds no
-    SSM state, whose fields are replaced, since only hymba has one)."""
+    Mamba state, whose fields are replaced, since only hymba has one)."""
     if isinstance(layers, tuple):
         return layers
-    fields = [f.name for f in dataclasses.fields(LayerCache)]
-    return tuple(LayerCache(**{f: None if getattr(layers, f) is None else getattr(layers, f)[li]
-                               for f in fields})
-                 for li in range(layers.k.shape[0]))
+    fields = layers.tensors()
+    return tuple(LayerCache(**{f: t[li] for f, t in fields})
+                 for li in range(fields[0][1].shape[0]))
+
+
+def _write_ring(k_c, v_c, kpos_c, k, v):
+    """Write a prompt's K/V [B, S, Hkv, hd] into a ring (or full) cache:
+    its last W positions at slot = position mod W, rounded to the cache's
+    dtype."""
+    S, W = k.shape[1], k_c.shape[1]
+    take = min(W, S)
+    ppos = torch.arange(S - take, S, dtype=torch.int32, device=k.device)
+    slots = (ppos % W).long()
+    k_c[:, slots] = k[:, S - take:].to(k_c.dtype)
+    v_c[:, slots] = v[:, S - take:].to(v_c.dtype)
+    kpos_c[slots] = ppos
 
 
 # ----------------------------------------------------------------------------
 # prefill: process a full prompt, emit the decode cache
 # ----------------------------------------------------------------------------
 
+def _prefill_attention(h, p, cfg: ModelConfig, cs, window: int, k_c, v_c, kpos_c):
+    """Self-attention of a prompt that also writes its K/V into a cache."""
+    q, k, v = LY.qkv(h, p, cfg, cs)
+    _write_ring(k_c, v_c, kpos_c, k, v)
+    return LY.attn_out(LY.attend(q, k, v, causal=True, window=window), p)
+
+
 def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, frames=None,
-            max_new_tokens: int = 64):
+            max_new_tokens: int = 64, moe_dense: bool = False):
     """Process a prompt ``tokens`` [B, S] (an encoder–decoder: the target
     prefix, with ``frames`` [B, S_src, d] for the encoder) and return
     (last-token logits [B, 1, V], DecodeCache). Full-attention caches are
-    sized ``S + max_new_tokens`` and hold ``cfg.dtype``; each layer's K/V
-    are written (its last W positions, slot = position mod W) as attention
-    used them, rounded to the cache's dtype; cross-attention K/V at the
-    encoder's length, likewise rounded (prefill attends them unrounded).
-    The SSM starts from zero state."""
-    _require_ported(cfg)
+    sized ``S + max_new_tokens`` and hold ``cfg.dtype``; each attention's
+    K/V are written (its last W positions, slot = position mod W) as
+    attention used them, rounded to the cache's dtype; cross-attention K/V
+    at the encoder's length, likewise rounded (prefill attends them
+    unrounded). The SSM and RWKV6 start from zero state. ``moe_dense``: MoE
+    layers run every expert (`layers.moe`)."""
     B, S = tokens.shape
     dev = tokens.device
     enc_out = None
@@ -291,15 +340,16 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, frames=None,
     for li, (w, c) in enumerate(zip(layer_windows(cfg), _per_layer(cache.layers))):
         p = _layer(_decoder(params, cfg), li)
         h = LY.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = LY.qkv(h, p["attn"], cfg, cs)
-        mix = LY.attn_out(LY.attend(q, k, v, causal=True, window=int(w)), p["attn"])
-        W = c.k.shape[1]
-        take = min(W, S)
-        ppos = torch.arange(S - take, S, dtype=torch.int32, device=dev)
-        slots = (ppos % W).long()
-        c.k[:, slots] = k[:, S - take:].to(c.k.dtype)
-        c.v[:, slots] = v[:, S - take:].to(c.v.dtype)
-        c.kpos[slots] = ppos
+        if cfg.rwkv:
+            mix, (prev_tm, s) = SM.rwkv_time_mix(h, p, cfg)
+            x = x + mix
+            out, prev_cm = SM.rwkv_channel_mix(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p)
+            x = x + out
+            c.rwkv_s.copy_(s)
+            c.rwkv_prev_tm.copy_(prev_tm)
+            c.rwkv_prev_cm.copy_(prev_cm)
+            continue
+        mix = _prefill_attention(h, p["attn"], cfg, cs, int(w), c.k, c.v, c.kpos)
         if cfg.hybrid_ssm:
             sout, (c.ssm_h, c.ssm_tail) = SM.mamba(h, p["ssm"], cfg)
             mix = mix * p["mix_attn"] + sout * p["mix_ssm"]
@@ -311,7 +361,12 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, frames=None,
             x = x + LY.attn_out(xo, p["xattn"])
             c.xk.copy_(xk)
             c.xv.copy_(xv)
-        x = x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg)
+        x = x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg, moe_dense)
+        if "ln3" in p:  # the pair's second attention, cached in k2/v2, then MoE
+            x = x + _prefill_attention(LY.rms_norm(x, p["ln3"], cfg.norm_eps), p["attn2"],
+                                       cfg, cs, int(w), c.k2, c.v2, c.kpos2)
+            x = x + LY.moe(LY.rms_norm(x, p["ln4"], cfg.norm_eps), p["moe"], cfg,
+                           dense=moe_dense)
     cache.pos = S
     return lm_head(params, cfg, x[:, -1:]), cache
 
@@ -320,28 +375,39 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, frames=None,
 # decode (one token per sequence)
 # ----------------------------------------------------------------------------
 
-def _decode_attention(x, p, cfg, c: LayerCache, pos: int, cs):
-    """One-token attention against one layer's cache. The token's K/V go
-    into slot pos mod W first, rounded to the cache's dtype; the query
-    then attends every filled slot, [0, min(pos + 1, W)), with no causal
-    mask: a full cache holds positions 0 … pos there, a ring the last W,
-    so this is the reference's ``kv_valid`` mask (key order does not
-    matter to attention)."""
-    W = c.k.shape[1]
+def _decode_attention(x, p, cfg, k_c, v_c, pos: int, cs):
+    """One-token attention against one layer's (ring or full) K/V cache.
+    The token's K/V go into slot pos mod W first, rounded to the cache's
+    dtype; the query then attends every filled slot, [0, min(pos + 1, W)),
+    with no causal mask: a full cache holds positions 0 … pos there, a ring
+    the last W, so this is the reference's ``kv_valid`` mask (key order
+    does not matter to attention)."""
+    W = k_c.shape[1]
     slot, n = pos % W, min(pos + 1, W)
     q, k, v = LY.qkv(x, p, cfg, cs)
-    c.k[:, slot] = k[:, 0].to(c.k.dtype)
-    c.v[:, slot] = v[:, 0].to(c.v.dtype)
-    return LY.attn_out(LY.attend(q, c.k[:, :n], c.v[:, :n], causal=False), p)
+    k_c[:, slot] = k[:, 0].to(k_c.dtype)
+    v_c[:, slot] = v[:, 0].to(v_c.dtype)
+    return LY.attn_out(LY.attend(q, k_c[:, :n], v_c[:, :n], causal=False), p)
 
 
 def _decode_layer(x, p, c: LayerCache, cfg: ModelConfig, pos: int, cs):
     """One layer of single-token decode; updates its cache and returns x.
-    The SSM runs `ssm.mamba` on the one token from the cached state, as
-    the reference's decode does; cross-attention reads the cached (rounded)
-    K/V with an unrotated query."""
+    The SSM runs `ssm.mamba` on the one token from the cached state, and
+    RWKV6 its time and channel mix from the cached state, as the
+    reference's decode does; cross-attention reads the cached (rounded) K/V
+    with an unrotated query; MoE runs dense."""
     h = LY.rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix = _decode_attention(h, p["attn"], cfg, c, pos, cs)
+    if cfg.rwkv:
+        mix, (prev_tm, s) = SM.rwkv_time_mix(h, p, cfg, prev_x=c.rwkv_prev_tm,
+                                             state=c.rwkv_s)
+        x = x + mix
+        out, prev_cm = SM.rwkv_channel_mix(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p,
+                                           prev_x=c.rwkv_prev_cm)
+        c.rwkv_s.copy_(s)
+        c.rwkv_prev_tm.copy_(prev_tm)
+        c.rwkv_prev_cm.copy_(prev_cm)
+        return x + out
+    mix = _decode_attention(h, p["attn"], cfg, c.k, c.v, pos, cs)
     if cfg.hybrid_ssm:
         sout, (c.ssm_h, c.ssm_tail) = SM.mamba(h, p["ssm"], cfg, state=c.ssm_h,
                                                conv_tail=c.ssm_tail)
@@ -351,19 +417,25 @@ def _decode_layer(x, p, c: LayerCache, cfg: ModelConfig, pos: int, cs):
         hx = LY.rms_norm(x, p["ln_x"], cfg.norm_eps)
         xo = LY.attend(LY.query(hx, p["xattn"], cfg), c.xk, c.xv, causal=False)
         x = x + LY.attn_out(xo, p["xattn"])
-    return x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg)
+    x = x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg, moe_dense=True)
+    if "ln3" in p:  # llama4 pair: second attention + MoE
+        x = x + _decode_attention(LY.rms_norm(x, p["ln3"], cfg.norm_eps), p["attn2"], cfg,
+                                  c.k2, c.v2, pos, cs)
+        x = x + LY.moe(LY.rms_norm(x, p["ln4"], cfg.norm_eps), p["moe"], cfg, dense=True)
+    return x
 
 
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache, tokens):
     """tokens: [B, 1] → (logits [B, 1, V], the cache advanced one
     position). The cache's tensors are updated in place."""
-    _require_ported(cfg)
     pos = cache.pos
     x = embed_tokens(params, cfg, tokens)
     cs = _rope(cfg, torch.full((1, 1), pos, dtype=torch.int32, device=x.device))
     for li, c in enumerate(_per_layer(cache.layers)):
         x = _decode_layer(x, _layer(_decoder(params, cfg), li), c, cfg, pos, cs)
-    # each layer's slot pos mod W now holds pos (one write for a stacked cache)
+    # each ring's slot pos mod W now holds pos (one write for a stacked cache)
     for c in cache.layers if isinstance(cache.layers, tuple) else (cache.layers,):
-        c.kpos[..., pos % c.kpos.shape[-1]] = pos
+        for kpos in (c.kpos, c.kpos2):
+            if kpos is not None:
+                kpos[..., pos % kpos.shape[-1]] = pos
     return lm_head(params, cfg, x), DecodeCache(layers=cache.layers, pos=pos + 1)
