@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's join-correlation query paths, and its LM
+"""Drive the PyTorch port's join-correlation query paths (on one device
+and column-sharded over a device mesh), its serving drivers, and its LM
 serving paths (dense, hybrid SSM, encoder–decoder, MoE, RWKV6), on one
 CUDA card.
 
@@ -136,6 +137,31 @@ fatal on failure (exit code 1, no result line):
                 appends, deletes and refreshes of a live index on the card
                 (128 tables): no ticket may fail, and once the mutations
                 stop the scheduler's results equal direct calls.
+  10b. sharded — the phase-3 index column-sharded over a 4-shard mesh
+                (`make_host_mesh(4)`: four shards on the one card, or one
+                on each of four cards), with every launch count at 0: two
+                servers (``candidates="scan"`` and ``"inverted"``) warm
+                every prune mode and serve 32 planted queries (the latent
+                columns of every 128th group, so each shard holds the
+                targets of 8) for every
+                scorer × estimator × prune mode (``off`` through the scan
+                server: it is the same scan through either) and
+                ``stage1_hits``; one 32-query off dispatch must launch the
+                sketch join (and the rank or Qn kernel) 4 × one block's
+                chunk count and ``stage1_hits`` the containment kernel
+                once a shard. `distributed_build_table` sketches the first
+                128 tables with their rows in 4 blocks over the mesh: key
+                sets equal the fused build's, values within 1e-3, rows
+                within 0.5. Every query kernel and hash_build must have
+                launched (those counts join the ``kernels`` line). Then
+                one-device servers on the same card serve the same
+                requests: every result must be bit-identical (scores, ids,
+                r, m, hit counts), and every shard must rank some column.
+                The 32-query off dispatch is timed (CUDA events, p50/p99 of
+                10) at 4 shards and on one device. Last, the two serving
+                drivers run on the card: ``launch.serve --tables 2000
+                --queries 200 --batch 32`` and ``serve_queries`` at its
+                defaults.
   11. flash_attention — the kernel against its twin (2e-3 with a float32
                 output, 2e-2 with bfloat16: the reference sweep's
                 tolerances; 1e-4 at the prefill shape, where the split-TF32
@@ -153,7 +179,11 @@ fatal on failure (exit code 1, no result line):
                 and k/v [4, 12, 1500, 64] f32; its cross-attention prefill,
                 416 queries on 1500 keys, and decode, one query on the bf16
                 cross cache; hymba's ring decode, q [4, 25, 1, 64] f32 on a
-                full [4, 5, 1024, 64] bf16 ring) and head dim 128 (grok's
+                full [4, 5, 1024, 64] bf16 ring; hymba's prefill, q [4, 25,
+                2048, 64] on k/v [4, 5, 2048, 64] f32, causal; whisper's
+                decoder self-attention, q and k/v [4, 12, 416, 64] f32,
+                causal; hymba's global-layer decode, q [4, 25, 1, 64] f32
+                on a [4, 5, 2080, 64] bf16 cache) and head dim 128 (grok's
                 causal prefill, q [4, 48, 2048, 128] on k/v [4, 8, 2048,
                 128] f32, and split-key decode, 48 query heads on 8 bf16 KV
                 heads of 2080 positions; llama4's decode, 40 on 8), each
@@ -220,7 +250,11 @@ counters, survivor rungs), a
 seconds, appended columns/s, segment counts, and 32-query call p50/p99
 with 8 segments and with 1), a ``library`` JSON line (ms per query per
 estimator, launches), a ``scheduler`` JSON line (sequential qps, load
-goodput, latencies, misses, coalescing, the race's ticket counts), an
+goodput, latencies, misses, coalescing, the race's ticket counts), a
+``sharded`` JSON line (warmup and sweep seconds, launches, per-shard
+launch counts, ranked ids per shard, the off dispatch p50/p99 at 4 shards
+and on one device, the row-sharded build's error and seconds), the two
+drivers' own lines, an
 ``lm`` JSON line (prefill seconds and tokens/s, decode ms per step p50 and
 p99, peak device memory, flash_attention launches, the checks' errors and
 a profile of one prefill and one decode step: attention, matrix products,
@@ -274,6 +308,9 @@ from repro_torch.kernels import hash_build as HB  # noqa: E402
 from repro_torch.kernels import postings as PM  # noqa: E402
 from repro_torch.kernels import rank_transform as RT  # noqa: E402
 from repro_torch.kernels import sketch_join as SJ  # noqa: E402
+from repro_torch import serve_queries  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 
 SEED = 0
 GROUPS, COLS, ROWS, N = 4096, 32, 1024, 256
@@ -326,6 +363,16 @@ LOAD_FACTOR = 3.0
 SLO_MS = 50.0
 SEQ_CALLS = 64
 RACE_STEPS = 4
+#: the sharded phase: its mesh's shards (on the cards round-robin), the
+#: planted queries it serves, timed dispatches per side, and the tables of
+#: its row-sharded build
+SHARDS = 4
+SHARD_QUERIES = 32
+SHARD_TIMED = 10
+SHARD_BUILD_TABLES = 128
+#: the two drivers the sharded phase runs on the card, at their defaults
+#: (launch.serve at the size its docstring gives)
+SERVE_ARGS = ["--tables", "2000", "--queries", "200", "--batch", "32"]
 #: the LM phase: the config served at full width, prompts × prompt tokens
 #: and greedy steps (2016 + 32 = tinyllama's published 2048-token
 #: context), and the card-vs-CPU check's layers, tokens and steps
@@ -398,6 +445,7 @@ PREFILL_TOL = 1e-4
 #: the flash_attention cases timed as well as checked: the launch shapes
 #: of the hybrid and encoder-decoder paths
 PATH_CASES = ("whisper encoder", "cross prefill", "cross decode", "hymba ring decode",
+              "hymba prefill", "whisper self prefill", "hymba global decode",
               "grok prefill", "grok decode", "llama4 decode")
 #: postings_merge's edge cases: C (the path's rows folded into [0, C))
 MERGE_EDGES = (131071, 45, 1)
@@ -1725,6 +1773,182 @@ def phase_scheduler(index, groups, keys, vals, dev):
 
 
 # ----------------------------------------------------------------------------
+# sharded serving and build: the index column-sharded over a device mesh
+# ----------------------------------------------------------------------------
+
+def _event_ms(fn, calls: int):
+    """p50 and p99 of ``calls`` calls of ``fn``, each timed by CUDA events
+    on the current stream (``fn`` waits for its results)."""
+    ms = []
+    for _ in range(calls):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def _launched(fn):
+    """Launch counts of one call of ``fn`` (the counters' difference)."""
+    before = ops.launches()
+    fn()
+    return {k: v - before[k] for k, v in ops.launches().items() if v - before[k]}
+
+
+def _per_shard_launches(srv, sk):
+    """Every shard launches its block's kernels: one 32-query dispatch
+    scans each of the SHARDS blocks in chunks, so the sketch join (and
+    the rank or Qn kernel under those estimators) launches SHARDS times
+    one block's chunk count, and `stage1_hits` probes each block once."""
+    w = srv.C // SHARDS
+    chunks = SHARDS * -(-w // srv.chunk_for(BUCKET))
+    want = {"pearson": {"sketch_join_moments": chunks},
+            "spearman": {"sketch_join_moments": chunks, "rank_moments": chunks},
+            "qn": {"sketch_join_moments": chunks, "qn_correlation": chunks}}
+    for est, counts in want.items():
+        got = _launched(lambda: srv.query_batch(sk, request=PL.Request(estimator=est)))
+        if got != counts:
+            fail(f"sharded off/{est}: launches {got}, want {counts} "
+                 f"({SHARDS} shards × {chunks // SHARDS} chunks)")
+    got = _launched(lambda: srv.stage1_hits(sk))
+    if got != {"containment_hits": SHARDS}:
+        fail(f"sharded stage1_hits: launches {got}, want one per shard")
+    return dict(off_chunks_per_shard=chunks // SHARDS, stage1_probes=SHARDS)
+
+
+def _canon(kh, vals, mask):
+    """Each column's valid keys ascending, with their values (masked slots
+    last): a layout-free form of a sketch for comparing key sets."""
+    k = torch.where(mask > 0, kh.to(torch.int64), 1 << 40)
+    o = k.argsort(-1)
+    return k.gather(-1, o), vals.gather(-1, o), (mask > 0).gather(-1, o)
+
+
+def _sharded_build(groups, index, mesh):
+    """`distributed_build_table` of the first tables, their rows in SHARDS
+    blocks over the mesh, against the fused build's planes in the index:
+    key sets exact, values within 1e-3, rows within 0.5 (the reference's
+    tolerances for its row-sharded build)."""
+    sh = index.shard
+    worst = 0.0
+    t0 = time.perf_counter()
+    for i, g in enumerate(groups[:SHARD_BUILD_TABLES]):
+        sk = TG.distributed_build_table(g.keys, g.values, mesh, n=N)
+        cols = slice(i * COLS, (i + 1) * COLS)
+        gk, gv, gm = _canon(sk.key_hash, sk.values(), sk.mask.float())
+        wk, wv, wm = _canon(hashing.from_pattern(sh.key_hash[cols]),
+                            sh.values[cols], sh.mask[cols])
+        if not (torch.equal(gk, wk) and torch.equal(gm, wm)):
+            fail(f"sharded build of {g.name}: key sets differ from the fused build")
+        d = float((gv - wv).abs().max())
+        worst = max(worst, d)
+        if d >= 1e-3 or float((sk.rows - sh.rows[cols]).abs().max()) >= 0.5:
+            fail(f"sharded build of {g.name}: values or rows differ (max |diff| {d})")
+    torch.cuda.synchronize()
+    return dict(tables=SHARD_BUILD_TABLES, rows_per_shard=ROWS // SHARDS,
+                seconds=time.perf_counter() - t0, max_abs_err=worst)
+
+
+def phase_sharded(index, groups, dev):
+    """The index column-sharded over a SHARDS-shard mesh (four shards on
+    one card, or one on each of four): planted queries over every
+    scorer × estimator × prune mode through both candidate sources, each
+    kernel launching on every shard, bit-identical to the one-device
+    server on the same card; the off dispatch timed at both widths; the
+    row-sharded build against the fused one; then the two serving drivers
+    on the card. Returns the sharded path's launches."""
+    mesh = make_host_mesh(SHARDS)
+    # planted queries on groups spread over the whole index, so every
+    # shard holds some of their targets
+    spread = [groups[i * (GROUPS // SHARD_QUERIES)] for i in range(SHARD_QUERIES)]
+    sk = SV.build_query_sketches([g.keys for g in spread],
+                                 [g.meta["latent"] for g in spread], n=N, device=dev)
+    combos = [(sc, est, pm) for sc in PL.FAST_SCORERS for est in PL.ESTIMATORS
+              for pm in PL.PRUNE_MODES]
+    line = dict(shards=SHARDS, mesh=[str(d) for d in mesh],
+                columns=index.shard.num_columns, queries=SHARD_QUERIES)
+
+    def sweep(servers):
+        """Every combination through both sources; ``off`` is the same
+        scan through either, so it runs on the scan server only."""
+        out = {}
+        for src, srv in servers.items():
+            for sc, est, pm in combos:
+                if pm != "off" or src == "scan":
+                    out[src, sc, est, pm] = srv.query_batch(
+                        sk, request=PL.Request(scorer=sc, estimator=est, prune=pm))
+            out[src, "stage1"] = (srv.stage1_hits(sk),)
+        return out
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sharded = {src: SV.Server(index, PL.ShapePolicy(candidates=src),
+                              buckets=(BUCKET,), mesh=mesh)
+               for src in ("scan", "inverted")}
+    for srv in sharded.values():
+        srv.warmup()
+    line["warmup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = sweep(sharded)
+    line["sweep_s"] = time.perf_counter() - t0
+    line["per_shard"] = _per_shard_launches(sharded["scan"], sk)
+    build = _sharded_build(groups, index, mesh)
+    launches = ops.launches()
+    missing = [k for k in LIFECYCLE_KERNELS if not launches[k]]
+    if missing:
+        fail(f"sharded: {missing} never launched")
+    line["launches"] = launches
+    line["build"] = build
+    line["combine"] = sharded["scan"].shape.combine
+    line["fused_dispatches"] = _stages(sharded["inverted"]).get("fused", (0, 0))[0]
+    if not line["fused_dispatches"]:
+        fail("sharded: the fused inverted safe plan never ran")
+
+    one = {src: SV.Server(index, PL.ShapePolicy(candidates=src), buckets=(BUCKET,),
+                          device=dev) for src in ("scan", "inverted")}
+    for srv in one.values():
+        srv.warmup()
+    want = sweep(one)
+    for key, w in want.items():
+        if not all(np.array_equal(a, b) for a, b in zip(got[key], w)):
+            fail(f"sharded {key}: the {SHARDS}-shard result differs from one "
+                 f"device's (bit for bit)")
+    ids = np.concatenate([g[1].ravel() for k, g in got.items() if k[-1] != "stage1"])
+    width = index.shard.num_columns // SHARDS
+    line["ids_per_shard"] = np.bincount(ids[ids >= 0] // width, minlength=SHARDS).tolist()
+    if min(line["ids_per_shard"]) == 0:
+        fail(f"sharded: some shard never ranked a column: {line['ids_per_shard']}")
+
+    off = PL.Request(prune="off")
+    for name, srv in (("d4", sharded["scan"]), ("d1", one["scan"])):
+        p50, p99 = _event_ms(lambda: srv.query_batch(sk, request=off), SHARD_TIMED)
+        line[f"off_{name}_p50_ms"], line[f"off_{name}_p99_ms"] = p50, p99
+    del sharded, one
+    say("sharded " + json.dumps(line))
+    say(f"sharded: {SHARDS} shards ({', '.join(line['mesh'])}) × {width} columns, "
+        f"{line['combine']} combine: {SHARD_QUERIES} planted queries × "
+        f"{len(combos)} scorer × estimator × prune requests through the scan and "
+        f"inverted sources == one device, bit for bit (scores, ids, r, m; "
+        f"stage1_hits too); each block launched {line['per_shard']['off_chunks_per_shard']} "
+        f"sketch-join chunks a dispatch; 32-query off dispatch p50/p99 "
+        f"{line['off_d4_p50_ms']:.1f}/{line['off_d4_p99_ms']:.1f} ms at {SHARDS} "
+        f"shards, {line['off_d1_p50_ms']:.1f}/{line['off_d1_p99_ms']:.1f} ms on one "
+        f"device (CUDA events); row-sharded build of {SHARD_BUILD_TABLES} tables == "
+        f"the fused build (max |diff| {build['max_abs_err']})")
+
+    t0 = time.perf_counter()
+    launch_serve.main(SERVE_ARGS)
+    t1 = time.perf_counter()
+    serve_queries.main([])
+    say(f"drivers: launch.serve {' '.join(SERVE_ARGS)} in {t1 - t0:.1f} s, "
+        f"serve_queries in {time.perf_counter() - t1:.1f} s")
+    return {k: v for k, v in launches.items() if k in LIFECYCLE_KERNELS}
+
+
+# ----------------------------------------------------------------------------
 # the LM substrate: flash_attention, and tinyllama-1.1b served on the card
 # ----------------------------------------------------------------------------
 
@@ -1775,6 +1999,15 @@ def _flash_cases():
         ("cross prefill", (B, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0, f32, f32),
         ("cross decode", (B, 12, 12, 1, ENCDEC_FRAMES, 64), False, 0, f32, bf16),
         ("hymba ring decode", (B, 25, 5, 1, 1024, 64), False, 0, f32, bf16),
+        # and three more of their launch shapes: hymba's prefill (its
+        # global layers: causal, no window), whisper's decoder
+        # self-attention over the prompt, and hymba's global-layer decode
+        # over its bf16 cache
+        ("hymba prefill", (B, 25, 5, HYBRID_PROMPT, HYBRID_PROMPT, 64), True, 0, f32, f32),
+        ("whisper self prefill", (B, 12, 12, ENCDEC_PROMPT, ENCDEC_PROMPT, 64), True, 0,
+         f32, f32),
+        ("hymba global decode", (B, 25, 5, 1, HYBRID_PROMPT + LM_NEW, 64), False, 0, f32,
+         bf16),
         # head dim 128 inside a model (the MoE paths): grok's prefill and
         # split-key decode (48 query heads on 8 bf16 KV heads, group 6), and
         # llama4's decode (group 5)
@@ -1892,7 +2125,8 @@ def phase_flash(dev):
         f"decode, the reference sweep, hymba's 25/5 heads with window 1024 and "
         f"without, Lq = Lk = 37, Lq = 1, Lq > Lk, decode over 2017 keys, hymba's "
         f"decode with window 1024, 4 positions × 4 heads, whisper's encoder, cross "
-        f"prefill and cross decode, hymba's ring decode, grok's head-dim-128 prefill and "
+        f"prefill and cross decode, hymba's ring decode, hymba's prefill and global "
+        f"decode, whisper's decoder self-attention, grok's head-dim-128 prefill and "
         f"decode, llama4's decode) — each matches its twin (max "
         f"|diff| {worst}; prefill {prefill_err}); prefill {row['ms']:.4f} ms events, "
         f"{row['device_ms']} ms "
@@ -2484,6 +2718,9 @@ def main(argv) -> None:
     launches["rank_transform"] = timed("library", phase_library, index, keys, vals,
                                        best, dev)["rank_transform"]
     timed("scheduler", phase_scheduler, index, groups, keys, vals, dev)
+    # the sharded path's launches join each query kernel's and hash_build's
+    for k, v in timed("sharded", phase_sharded, index, groups, dev).items():
+        launches[k] = launches.get(k, 0) + v
     rows.update(timed("flash_attention", phase_flash, dev))
     # flash_attention's launches: the sum over the six LM paths
     launches["flash_attention"] = sum(

@@ -4,8 +4,9 @@ The table generators the engine and its tests need: `Table` (one ⟨K, X⟩
 column pair), `TableGroup` (a join-key column shared by C numeric columns),
 `multi_column_group` (a wide table with known cross-column correlation),
 `group_corpus` / `grow_corpus` (a corpus of wide tables, and one arriving
-in batches, the live index's workload) and `sbn_pair` (the SBN
-bivariate-normal pair). Same seeds give the same
+in batches, the live index's workload), `sbn_pair` (the SBN
+bivariate-normal pair), `skewed_pair` (an open-data-like pair) and
+`corpus` (a collection of either). Same seeds give the same
 tables as the JAX package's generators. For the LM substrate, `lm_batch`:
 seeded synthetic token batches, equal to the JAX package's for a seed.
 """
@@ -148,3 +149,38 @@ def sbn_pair(rng, n_max: int = 500_000, r: Optional[float] = None,
     tx = Table(keys=keys, values=xy[:, 0], name="X", meta={"r": r})
     ty = Table(keys=keys[sel], values=xy[sel, 1], name="Y", meta={"r": r, "c": c})
     return tx, ty, r, c
+
+
+def skewed_pair(rng, n_max: int = 200_000, key_space: int = 1 << 30
+                ) -> Tuple[Table, Table, float, float]:
+    """Open-data-like pair (NYC/WBF §5.1): repeated keys (zipf
+    multiplicities), heavy-tailed values (an expm1 transform of either
+    side, each with probability ½) and 2% missing x values. Returns (T_X,
+    T_Y, r, c) like `sbn_pair`."""
+    n = int(rng.integers(256, n_max))
+    n_distinct = max(int(n * rng.uniform(0.3, 1.0)), 64)
+    base = rng.choice(key_space, size=n_distinct, replace=False).astype(np.uint32)
+    keys = base[rng.zipf(2.0, size=n) % n_distinct]
+    r = float(rng.uniform(-1, 1))
+    latent = rng.standard_normal(n)
+    noise = rng.standard_normal(n)
+    x = latent
+    y = r * latent + np.sqrt(max(1 - r * r, 0.0)) * noise
+    if rng.random() < 0.5:
+        x = np.sign(x) * np.expm1(np.abs(x))
+    if rng.random() < 0.5:
+        y = np.sign(y) * np.expm1(np.abs(y))
+    x[rng.random(n) < 0.02] = np.nan
+    c = float(rng.uniform(0.05, 1.0))
+    m = max(int(n * c), 8)
+    sel = rng.choice(n, size=m, replace=False)
+    return (Table(keys=keys, values=x.astype(np.float32), name="X"),
+            Table(keys=keys[sel], values=y[sel].astype(np.float32), name="Y"),
+            r, c)
+
+
+def corpus(rng, n_tables: int, kind: str = "sbn", n_max: int = 100_000):
+    """``n_tables`` pairs of `sbn_pair` (``kind="sbn"``) or `skewed_pair`
+    (any other kind), for estimation-accuracy experiments."""
+    gen = sbn_pair if kind == "sbn" else skewed_pair
+    return [gen(rng, n_max=n_max) for _ in range(n_tables)]

@@ -1,6 +1,7 @@
 """Device resolution shared by the port's entry points."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -19,3 +20,13 @@ def resolve(device: DeviceLike = None) -> torch.device:
                 "plain PyTorch path")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on(device) -> contextlib.AbstractContextManager:
+    """Make ``device`` the current CUDA device inside the block, so the
+    kernels launched there go to its queue (a shard of a mesh on another
+    card); a no-op for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

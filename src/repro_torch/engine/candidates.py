@@ -6,7 +6,7 @@ with it, and how many — the exact sketch-intersection sizes that drive
 `Server.search_joinable`. Two sources give the same exact counts:
 
   * `ScanSource` — the containment kernel over every resident column
-    (`plans.probe`), O(C) per query;
+    (`plans.probe`, one launch per shard of a mesh), O(C) per query;
   * `InvertedSource` — the inverted key index (`engine.index.Postings`):
     one ``searchsorted`` per query key, a W-wide window gather and the
     postings-merge kernel, O(n·(W + log E)) per query whatever C is.
@@ -21,9 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import device as D
 from repro_torch.core.sketch import PAD_KEY
 from repro_torch.engine import plans as PL
-from repro_torch.engine.index import IndexShard, Postings
+from repro_torch.engine.index import Postings
 from repro_torch.kernels import ops as K
 
 #: the concrete candidate sources (`plans.ShapePolicy.candidates` also
@@ -65,19 +66,26 @@ def dense_hit_counts(cols: np.ndarray, counts: np.ndarray,
 
 
 class ScanSource:
-    """The containment scan over every resident column."""
+    """The containment scan over every resident column: each shard of the
+    index (an `IndexShard` or a `MeshShard`) probes its own block."""
 
-    def __init__(self, shard: IndexShard):
-        self.shard = shard
+    def __init__(self, shard):
+        self.shard = PL.as_mesh_shard(shard)
 
     def hit_counts(self, qa) -> np.ndarray:
         """Host ``f32 [B, C]`` exact hit counts of the query tuple
-        ``qa = (q_kh, q_val, q_mask, q_cmin, q_cmax)``."""
-        return PL.probe(qa[0], qa[2], self.shard).cpu().numpy()
+        ``qa = (q_kh, q_val, q_mask, q_cmin, q_cmax)``, in global-id
+        order."""
+        rows = []
+        for blk, dev in zip(self.shard.blocks, self.shard.mesh):
+            with D.on(dev):
+                rows.append(PL.probe(qa[0].to(dev), qa[2].to(dev), blk))
+        return np.concatenate([h.cpu().numpy() for h in rows], axis=1)
 
     def warmup(self, B: int) -> None:
-        PL.probe(*_dummy_keys(B, self.shard.key_hash.shape[1],
-                              self.shard.key_hash.device), self.shard)
+        for blk, dev in zip(self.shard.blocks, self.shard.mesh):
+            with D.on(dev):
+                PL.probe(*_dummy_keys(B, blk.key_hash.shape[1], dev), blk)
 
 
 class InvertedSource:

@@ -9,11 +9,17 @@ planes scanned brute force:
 Beside it, two derived layouts serve stage 1 of two-stage retrieval
 (DESIGN.md §5, §7): `KeyMinima` (per-column KMV count and threshold, for
 the joinability estimates) and `Postings` (the inverted key index).
+
+Over a device mesh (`repro_torch.launch.mesh`) the planes are column-
+sharded (DESIGN.md §10): `place_shard` pads C to a multiple of the shard
+count with fully masked columns and lays the columns out as contiguous
+blocks, one per mesh device (`MeshShard`). `distributed_build` sketches a
+row-sharded column on the mesh and folds the partials.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +51,52 @@ class IndexShard:
     def to(self, device) -> "IndexShard":
         return IndexShard(*(getattr(self, f.name).to(device)
                             for f in dataclasses.fields(self)))
+
+    def columns(self, s: int, e: int) -> "IndexShard":
+        """The columns ``[s, e)``."""
+        return IndexShard(*(getattr(self, f.name)[s:e]
+                            for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShard:
+    """An `IndexShard` column-sharded over a mesh: ``blocks[d]`` holds the
+    global columns ``[d · width, (d + 1) · width)`` on ``mesh[d]``. The
+    column count is padded to a multiple of the shard count, so it depends
+    only on (C, D)."""
+    blocks: Tuple[IndexShard, ...]
+    mesh: Tuple[torch.device, ...]
+
+    @property
+    def width(self) -> int:
+        """Columns per shard."""
+        return self.blocks[0].num_columns
+
+    @property
+    def num_columns(self) -> int:
+        """Padded column count of the whole index."""
+        return self.width * len(self.blocks)
+
+    def offset(self, d: int) -> int:
+        """Global id of shard ``d``'s first column."""
+        return d * self.width
+
+    # the whole planes on the first shard's device, as an `IndexShard`
+    # reads them (a copy across shards; none on a one-shard mesh)
+    key_hash = property(lambda self: self.on(self.mesh[0]).key_hash)
+    values = property(lambda self: self.on(self.mesh[0]).values)
+    mask = property(lambda self: self.on(self.mesh[0]).mask)
+    col_min = property(lambda self: self.on(self.mesh[0]).col_min)
+    col_max = property(lambda self: self.on(self.mesh[0]).col_max)
+    rows = property(lambda self: self.on(self.mesh[0]).rows)
+
+    def on(self, device) -> IndexShard:
+        """The whole index on ``device``, columns in global-id order."""
+        if len(self.blocks) == 1:
+            return self.blocks[0].to(device)
+        return IndexShard(*(torch.cat([getattr(b, f.name).to(device)
+                                       for b in self.blocks])
+                            for f in dataclasses.fields(IndexShard)))
 
 
 @dataclasses.dataclass
@@ -238,3 +290,64 @@ def build_postings(key_hash: torch.Tensor, mask: torch.Tensor,
     out_keys[:used] = keys
     out_cols[:used] = cols_idx[order]
     return Postings(keys=out_keys, cols=out_cols, used=used)
+
+
+def place_shard(shard: IndexShard, mesh) -> MeshShard:
+    """Column-pad ``shard`` to a multiple of the mesh's shard count and
+    place one contiguous block on each mesh device (DESIGN.md §10). Pad
+    columns are fully masked — PAD keys, mask 0, rows 0, ``col_min`` and
+    ``col_max`` 0 — so they never match and are never eligible; the padded
+    count depends only on C and the shard count. Shared by the static path
+    (`shard_for_mesh`) and the per-segment placement of a live index."""
+    mesh = tuple(torch.device(d) for d in mesh)
+    ndev = len(mesh)
+    C = shard.num_columns
+    pad = (-C) % ndev
+    if pad:
+        fill = lambda x, v: torch.cat([x, torch.full(
+            (pad,) + x.shape[1:], v, dtype=x.dtype, device=x.device)])
+        shard = IndexShard(key_hash=fill(shard.key_hash, PAD_PATTERN),
+                           values=fill(shard.values, 0.0),
+                           mask=fill(shard.mask, 0.0),
+                           col_min=fill(shard.col_min, 0.0),
+                           col_max=fill(shard.col_max, 0.0),
+                           rows=fill(shard.rows, 0.0))
+    w = (C + pad) // ndev
+    return MeshShard(blocks=tuple(shard.columns(d * w, (d + 1) * w).to(dev)
+                                  for d, dev in enumerate(mesh)),
+                     mesh=mesh)
+
+
+def shard_for_mesh(index: SketchIndex, mesh) -> MeshShard:
+    """The index's planes column-sharded over ``mesh`` (`place_shard`)."""
+    return place_shard(index.shard, mesh)
+
+
+def distributed_build(keys, values, mesh, *, n: int = 256,
+                      agg: Agg = Agg.MEAN) -> CorrelationSketch:
+    """One sketch of a row-sharded column: device ``d`` of ``mesh`` sketches
+    the ``d``-th row block (its rows keep their global order), the partial
+    sketches go to ``mesh[0]`` and fold there one by one. Exact by the KMV
+    merge closure. ``keys [m]`` (uint32 numpy or int32-pattern tensor) and
+    ``values [m]``, m divisible by the shard count."""
+    from repro_torch.core.sketch import build_sketch, merge
+    mesh = tuple(torch.device(d) for d in mesh)
+    ndev = len(mesh)
+    if isinstance(keys, np.ndarray):
+        keys = hashing.keys_tensor(keys)
+    values = torch.as_tensor(values, dtype=torch.float32)
+    m = keys.shape[0]
+    if m % len(mesh):
+        raise ValueError(f"{m} rows do not split over {len(mesh)} shards")
+    step = m // len(mesh)
+    parts = []
+    for d, dev in enumerate(mesh):
+        with D.on(dev):
+            parts.append(build_sketch(keys[d * step:(d + 1) * step].to(dev),
+                                      values[d * step:(d + 1) * step].to(dev),
+                                      n=n, agg=agg,
+                                      order_offset=float(d * step)))
+    out = parts[0]
+    for p in parts[1:]:
+        out = merge(out, p.map(lambda t: t.to(mesh[0])))
+    return out

@@ -21,7 +21,8 @@ Two engines build a chunk, bit-identical to each other:
   (`build_sketch`).
 
 `tree_merge` folds stacked partial sketches in log₂(P) rounds: the fold of
-the live index's compaction.
+the live index's compaction, and of `distributed_build_table`, the
+row-sharded build over a device mesh.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch import device as D
 from repro_torch.core import hashing
 from repro_torch.core.sketch import (Agg, CorrelationSketch,
                                      _build_cols_from_hashed, build_sketch,
@@ -92,14 +94,20 @@ def check_engine(engine: str) -> None:
                          f"{ENGINES}")
 
 
+#: the tensor fields of a `CorrelationSketch`
+_FIELDS = ("key_hash", "acc", "cnt", "order", "mask", "col_min", "col_max",
+           "rows")
+
 #: the fold operator of stacked sketches (the reference's name): `merge`,
 #: the KMV ⊕ of §2.1, is already elementwise over leading axes
 merge_cols = merge
 
 
 def _sketch_batch(batch: Sequence, *, n: int, agg: Agg, chunk: int,
-                  device: torch.device, engine: str) -> CorrelationSketch:
-    """One batch of sources → stacked ``[columns, n]`` sketches."""
+                  device: torch.device, engine: str,
+                  order_offset: int = 0) -> CorrelationSketch:
+    """One batch of sources → stacked ``[columns, n]`` sketches. Row ``i``
+    of a source takes the global order ``order_offset + i``."""
     vals = [_values_2d(t) for t in batch]
     L = max(v.shape[1] for v in vals)
     if L == 0:
@@ -137,13 +145,14 @@ def _sketch_batch(batch: Sequence, *, n: int, agg: Agg, chunk: int,
         e = min(s + chunk, L)
         if engine == "fused":
             order = (torch.arange(e - s, dtype=torch.float32, device=device)
-                     + float(s)).expand(len(batch), e - s)
+                     + float(s + order_offset)).expand(len(batch), e - s)
             part = _build_cols_from_hashed(kh[:, s:e], fib[:, s:e],
                                            vals_d[:, s:e], ok[:, s:e], order,
                                            src_d, n, agg)
         else:
             part = build_sketch(kh[:, s:e], vals_d[:, s:e], n=n, agg=agg,
-                                valid=ok[:, s:e], order_offset=float(s),
+                                valid=ok[:, s:e],
+                                order_offset=float(s + order_offset),
                                 pre_hashed=True)
         sk = part if sk is None else merge(sk, part)
     return sk
@@ -151,29 +160,30 @@ def _sketch_batch(batch: Sequence, *, n: int, agg: Agg, chunk: int,
 
 def sketch_sources(sources: Sequence, *, n: int, agg: Agg = Agg.MEAN,
                    chunk: int = DEFAULT_CHUNK, device: torch.device,
-                   engine: str = "fused") -> CorrelationSketch:
+                   engine: str = "fused",
+                   order_offset: int = 0) -> CorrelationSketch:
     """Sketch every column of ``sources`` → stacked ``[C_total, n]``
-    sketches in source order, built on ``device`` by ``engine``."""
+    sketches in source order, built on ``device`` by ``engine``. Each
+    source's rows take the global order ``order_offset + row``."""
     check_engine(engine)
     parts = [_sketch_batch(b, n=n, agg=agg, chunk=chunk, device=device,
-                           engine=engine)
+                           engine=engine, order_offset=order_offset)
              for b in _batches(sources)]
-    fields = ("key_hash", "acc", "cnt", "order", "mask", "col_min",
-              "col_max", "rows")
     return CorrelationSketch(
-        **{f: torch.cat([getattr(p, f) for p in parts]) for f in fields},
+        **{f: torch.cat([getattr(p, f) for p in parts]) for f in _FIELDS},
         agg=agg)
 
 
 def sketch_source(t, *, n: int, agg: Agg = Agg.MEAN,
                   chunk: int = DEFAULT_CHUNK, device: torch.device,
-                  engine: str = "fused") -> CorrelationSketch:
+                  engine: str = "fused",
+                  order_offset: int = 0) -> CorrelationSketch:
     """Sketch one ingest source into a stacked ``[C, n]`` sketch — the
     entry point shared by `build_index` and the live index's append, so a
     table sketched at append time equals the same table sketched at build
     time."""
     return sketch_sources([t], n=n, agg=agg, chunk=chunk, device=device,
-                          engine=engine)
+                          engine=engine, order_offset=order_offset)
 
 
 def sketch_table(keys, values, *, n: int = 256, agg: Agg = Agg.MEAN,
@@ -205,3 +215,36 @@ def tree_merge(parts: CorrelationSketch) -> CorrelationSketch:
             nxt.append(level[-1])
         level = nxt
     return level[0]
+
+
+def distributed_build_table(keys, values, mesh, *, n: int = 256,
+                            agg: Agg = Agg.MEAN,
+                            chunk: int = DEFAULT_CHUNK) -> CorrelationSketch:
+    """Row-sharded fused build of one table over a device mesh (the
+    distributed §3.4 construction, DESIGN.md §2): device ``d`` of ``mesh``
+    sketches the ``d``-th row block of every column with the fused engine
+    (so `hash_build` runs on each device), its rows keeping their global
+    order; the ``[C, n]`` partials go to ``mesh[0]`` and `tree_merge` folds
+    them there. ``keys [m]`` and ``values [C, m]`` (or ``[m]``) are numpy,
+    m divisible by the shard count. Traffic between devices is D partials of ``[C, n]``, whatever
+    m is."""
+    mesh = tuple(torch.device(d) for d in mesh)
+    ndev = len(mesh)
+    keys = np.asarray(keys)
+    values = np.atleast_2d(np.asarray(values, np.float32))
+    m = keys.shape[0]
+    if m % ndev:
+        raise ValueError(f"{m} rows do not split over {ndev} shards")
+    step = m // ndev
+    parts = []
+    for d, dev in enumerate(mesh):
+        with D.on(dev):
+            parts.append(sketch_source(
+                TableGroup(keys=keys[d * step:(d + 1) * step],
+                           values=values[:, d * step:(d + 1) * step]),
+                n=n, agg=agg, chunk=chunk, device=dev,
+                order_offset=d * step))
+    stacked = CorrelationSketch(
+        **{f: torch.stack([getattr(p, f).to(mesh[0]) for p in parts])
+           for f in _FIELDS}, agg=agg)
+    return tree_merge(stacked)

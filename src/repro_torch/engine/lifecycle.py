@@ -28,7 +28,10 @@ A miniature LSM tree over column sketches:
 Segments keep their state in host numpy arrays (key hashes as ``uint32``,
 as in the reference); each keeps its inverted `Postings` on the index's
 device once built, maintained through writes and tombstones. The read side
-is `engine.serve.Server`, which serves a `LiveIndex` segment by segment.
+is `engine.serve.Server`, which serves a `LiveIndex` segment by segment
+and places each segment over its device mesh when `refresh` publishes it
+(`engine.index.place_shard`, DESIGN.md §10): the live index itself holds
+no sharding.
 During the delta phase the s4 CI normalisation spans one segment's
 candidate list, so s4 results equal a static server's only after
 `compact` leaves one segment; s1 and s2 are exact throughout.

@@ -1,40 +1,52 @@
-"""The plans of the serving engine (DESIGN.md §5–§7, §11), single device.
+"""The plans of the serving engine (DESIGN.md §5–§7, §10, §11).
 
 `ShapePolicy` holds what shapes a dispatch (top-k width, candidate chunk,
-survivor ladders, candidate source); `Request` holds the per-query
-semantics (k, estimator, scorer, prune mode, α, eligibility floor).
-Request values are plain run-time arguments: no kernel specialises on
-them, and a sweep over them after `Server.warmup` builds nothing new.
+survivor ladders, candidate source, shard count, rank combine); `Request`
+holds the per-query semantics (k, estimator, scorer, prune mode, α,
+eligibility floor). Request values are plain run-time arguments: no
+kernel specialises on them, and a sweep over them after `Server.warmup`
+builds nothing new.
 
-The scan (``prune="off"``) scores every candidate:
+Every plan runs over an index shard placed on one device (`IndexShard`) or
+column-sharded over a mesh (`MeshShard`, DESIGN.md §10): each shard scores
+its own columns on its own device, and only ``[B, k_max]`` strips (and s4's
+two ``[B]`` bound vectors) cross between shards. The scan
+(``prune="off"``) scores every candidate:
 
     _shard_stats   candidates in ``score_chunk`` blocks → (r, m, ci_len)
       _score_block   sketch join → estimator (pearson | spearman | rin | qn)
-    score_stats    §4.4 scorer (s1 | s2 | s4) with the m ≥ floor gate
-    topk           score descending, then candidate id ascending
+    score_shards   §4.4 scorer (s1 | s2 | s4) with the m ≥ floor gate; s4's
+                   CI-length bounds are reduced across shards first
+    topk           each shard's top-k_max: score descending, id ascending
+    combine        ``"gather"`` (strips ranked on the first shard's device)
+                   or ``"host"`` (`combine_local_topk`, a numpy lexsort) —
+                   one total order, score descending then global id
+                   ascending, so every shard count gives the same result
 
 Two-stage retrieval scores only candidates that can be eligible:
 
     probe          stage 1: exact key-intersection counts (= m) of every
-                   candidate, one containment launch
+                   candidate, one containment launch per shard
     select_survivors / prune_rung   host filter → a ``prune_base · 2^i`` rung
-    pruned         stage 2: the survivor sub-shard through `_shard_stats`
-    topm           probe → per-row top-M by hits → per-row scoring
-    inverted       postings window probe → merge → device select → stage 2,
+    pruned         stage 2: each shard scores the survivors it owns
+    topm           probe → per-shard, per-row top-M by hits → scoring
+    inverted       postings window probe → merge → device select (on the
+                   first shard's device, the probe is replicated) → stage 2,
                    one dispatch that also reports the survivor count
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import device as D
 from repro_torch.core import hashing
 from repro_torch.core import scoring as SC
 from repro_torch.core.bounds import hoeffding_eligibility_floor
-from repro_torch.engine.index import PAD_PATTERN, IndexShard
+from repro_torch.engine.index import PAD_PATTERN, IndexShard, MeshShard
 from repro_torch.kernels import ops as K
 
 FAST_SCORERS = ("s1", "s2", "s4")
@@ -61,6 +73,14 @@ class ShapePolicy:
     #: (containment over every column), "inverted" (the postings index) or
     #: "auto" (`resolve_candidates` by corpus size); prune="off" is a scan
     candidates: str = "scan"
+    #: shards of the mesh the plans run on; 0 = unresolved, pinned by
+    #: `resolve_shape` (a nonzero value must match the mesh)
+    mesh_shards: int = 0
+    #: cross-shard rank combine (DESIGN.md §10): "gather" ranks the
+    #: ``[D, k_max]`` strips on the first shard's device, "host" merges
+    #: them on the host (`combine_local_topk`); both use one total order.
+    #: "auto": "gather" on one shard, "host" on more
+    combine: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +111,42 @@ def resolve_candidates(candidates: str, num_columns: int) -> str:
     if candidates != "auto":
         return candidates
     return "inverted" if int(num_columns) >= AUTO_INVERTED_MIN_C else "scan"
+
+
+#: `ShapePolicy.combine` vocabulary
+COMBINE_MODES = ("auto", "gather", "host")
+
+
+def resolve_shape(shape: ShapePolicy, mesh,
+                  num_columns: Optional[int] = None) -> ShapePolicy:
+    """Pin the mesh-dependent fields of ``shape`` for ``mesh`` (a sequence
+    of devices): ``mesh_shards`` becomes the shard count (a nonzero value
+    must already equal it) and ``combine="auto"`` becomes "gather" on one
+    shard and "host" on more. With ``num_columns`` (a segment's padded
+    column count) ``candidates="auto"`` resolves too (`resolve_candidates`);
+    without it the value is only checked."""
+    ndev = len(mesh)
+    _plan_combine(shape, ndev)
+    combine = shape.combine
+    if combine == "auto":
+        combine = "host" if ndev > 1 else "gather"
+    resolved = resolve_candidates(shape.candidates, num_columns or 0)
+    candidates = shape.candidates if num_columns is None else resolved
+    return dataclasses.replace(shape, mesh_shards=ndev, combine=combine,
+                               candidates=candidates)
+
+
+def _plan_combine(shape: ShapePolicy, ndev: int) -> bool:
+    """Check ``shape`` against an ``ndev``-shard mesh; True when its plans
+    combine on the host. An unresolved ``"auto"`` gathers, as the
+    reference's plan builders do."""
+    if shape.combine not in COMBINE_MODES:
+        raise ValueError(f"unknown combine mode {shape.combine!r}: "
+                         f"use one of {COMBINE_MODES}")
+    if shape.mesh_shards not in (0, ndev):
+        raise ValueError(f"ShapePolicy.mesh_shards={shape.mesh_shards} does "
+                         f"not match the {ndev}-shard mesh")
+    return shape.combine == "host"
 
 
 def request_operands(req: Request) -> np.ndarray:
@@ -179,10 +235,11 @@ def _shard_stats(q_kh, q_val, q_mask, q_cmin, q_cmax, shard: IndexShard,
     return r, mom[..., 0], hi - lo
 
 
-def score_stats(r, m, ci_len, scorer: str, floor: float):
+def score_stats(r, m, ci_len, scorer: str, floor: float, bounds=None):
     """The §4.4 scoring tail: (r, m, ci_len) ``[B, C]`` → scores, with the
     m ≥ floor eligibility gate (ineligible → −inf). s4 normalises the
-    Hoeffding CI length over each query row's eligible candidates."""
+    Hoeffding CI length over each query row's eligible candidates: over
+    these C, or by ``bounds`` (``[B, 1]`` min and max, `_s4_bounds`)."""
     eligible = m >= floor
     abs_r = r.abs()
     if scorer == "s1":
@@ -190,7 +247,8 @@ def score_stats(r, m, ci_len, scorer: str, floor: float):
     elif scorer == "s2":
         s = abs_r * SC.se_z_factor(m)
     elif scorer == "s4":
-        lmin, lmax = SC.ci_h_bounds(ci_len, eligible, keepdim=True)
+        lmin, lmax = (SC.ci_h_bounds(ci_len, eligible, keepdim=True)
+                      if bounds is None else bounds)
         s = abs_r * SC.ci_h_factor_from_bounds(ci_len, lmin, lmax)
     else:
         raise ValueError(f"unknown scorer {scorer!r}: use one of "
@@ -216,16 +274,113 @@ def _unpack(ops: np.ndarray):
             float(ops[3]))
 
 
-def scan(q_kh, q_val, q_mask, q_cmin, q_cmax, shard: IndexShard,
-         shape: ShapePolicy, ops: np.ndarray):
-    """The full scan plan: query arrays ``[B, nq]`` against ``shard`` under
-    the `request_operands` vector ``ops`` → top-``k_max`` (scores, ids, r,
-    m), each ``[B, min(k_max, C)]``."""
+# ----------------------------------------------------------------------------
+# the mesh: per-shard stats → cross-shard s4 bounds → local top-k → combine
+# ----------------------------------------------------------------------------
+
+def as_mesh_shard(shard) -> MeshShard:
+    """``shard`` as a `MeshShard`: an `IndexShard` is a one-shard mesh on
+    its own device."""
+    if isinstance(shard, MeshShard):
+        return shard
+    return MeshShard(blocks=(shard,), mesh=(shard.key_hash.device,))
+
+
+def _on(qa, device):
+    """The query arrays on ``device`` (no copy when they are there)."""
+    return tuple(a.to(device) for a in qa)
+
+
+def _s4_bounds(stats, floor: float):
+    """s4's normalisation bounds over every shard of one dispatch: each
+    shard's ``[B, 1]`` min and max CI length over its eligible candidates,
+    reduced on the first shard's device (min and max are exact, so any
+    split of the candidates gives the one-shard bounds), then handed back
+    to every shard."""
+    local = [SC.ci_h_bounds(ci, m >= floor, keepdim=True) for _, m, ci in stats]
+    dev = local[0][0].device
+    lmin = torch.cat([lo.to(dev) for lo, _ in local], -1).amin(-1, keepdim=True)
+    lmax = torch.cat([hi.to(dev) for _, hi in local], -1).amax(-1, keepdim=True)
+    return [(lmin.to(r.device), lmax.to(r.device)) for r, _, _ in stats]
+
+
+def score_shards(stats, scorer: str, floor: float) -> List[torch.Tensor]:
+    """`score_stats` of every shard's (r, m, ci_len); under s4 the bounds
+    are reduced across the shards before any shard scores, so its ranking
+    does not depend on how the candidates are split."""
+    bounds = (_s4_bounds(stats, floor) if scorer == "s4"
+              else [None] * len(stats))
+    return [score_stats(r, m, ci, scorer, floor, bounds=b)
+            for (r, m, ci), b in zip(stats, bounds)]
+
+
+def _total_order(s, g):
+    """Per-row permutation of ``[B, L]`` strips into the total order score
+    descending, then global id ascending (two stable sorts)."""
+    by_id = torch.sort(g, dim=-1, stable=True).indices
+    by_s = torch.sort(torch.take_along_dim(s, by_id, dim=-1), dim=-1,
+                      descending=True, stable=True).indices
+    return torch.take_along_dim(by_id, by_s, dim=-1)
+
+
+def _topk_gathered(strips, k: int):
+    """The ``"gather"`` combine: every shard's strip moves to the first
+    shard's device, where the ``[B, D·kk]`` concatenation is ranked in the
+    total order → top-k (scores, global ids, r, m) on that device."""
+    dev = strips[0][0].device
+    s, g, r, m = (torch.cat([x.to(dev) for x in xs], -1)
+                  for xs in zip(*strips))
+    pick = _total_order(s, g)[:, :k]
+    return tuple(torch.take_along_dim(x, pick, dim=-1) for x in (s, g, r, m))
+
+
+def combine_local_topk(s, g, r, m, k: int):
+    """The ``"host"`` combine: merge the concatenated per-shard strips
+    ``[B, D·kk]`` (numpy) into the top-k under score descending, global id
+    ascending — the order of the ``"gather"`` combine and of the server's
+    cross-segment merge."""
+    s, g = np.asarray(s), np.asarray(g)
+    pick = np.lexsort((g, -s), axis=-1)[..., :k]
+    take = lambda x: np.take_along_axis(np.asarray(x), pick, axis=-1)
+    return take(s), take(g), take(r), take(m)
+
+
+def _rank(stats, gids, scorer: str, floor: float, k: int, host: bool):
+    """Score every shard (`score_shards`), take each shard's top-k and
+    combine the strips → (scores, global ids, r, m) ``[B, min(k, D·kk)]``:
+    tensors on the first shard's device (gather) or on the CPU (host)."""
+    strips = []
+    for s, (r, m, _), g in zip(score_shards(stats, scorer, floor), stats,
+                               gids):
+        with D.on(s.device):
+            # gids ascend along each shard's candidates, so topk's order
+            # (score descending, position ascending) is the total order
+            strips.append(topk(s, r, m, k, gids=g))
+    if not host:
+        return _topk_gathered(strips, k)
+    cat = [np.concatenate([x.cpu().numpy() for x in xs], -1)
+           for xs in zip(*strips)]
+    return tuple(torch.from_numpy(x) for x in combine_local_topk(*cat, k))
+
+
+def scan(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, shape: ShapePolicy,
+         ops: np.ndarray):
+    """The full scan plan: query arrays ``[B, nq]`` against ``shard`` (an
+    `IndexShard` or a `MeshShard`) under the `request_operands` vector
+    ``ops`` → top-``k_max`` (scores, ids, r, m), each ``[B, min(k_max,
+    C)]``: every shard scans its own block."""
+    ms = as_mesh_shard(shard)
     est, scorer, alpha, floor = _unpack(ops)
-    r, m, ci_len = _shard_stats(q_kh, q_val, q_mask, q_cmin, q_cmax, shard,
-                                shape.score_chunk, est, alpha)
-    s = score_stats(r, m, ci_len, scorer, floor)
-    return topk(s, r, m, shape.k_max)
+    qa = (q_kh, q_val, q_mask, q_cmin, q_cmax)
+    stats, gids = [], []
+    for d, (blk, dev) in enumerate(zip(ms.blocks, ms.mesh)):
+        with D.on(dev):
+            stats.append(_shard_stats(*_on(qa, dev), blk, shape.score_chunk,
+                                      est, alpha))
+        gids.append(torch.arange(ms.width, dtype=torch.int32, device=dev)
+                    + ms.offset(d))
+    return _rank(stats, gids, scorer, floor, shape.k_max,
+                 _plan_combine(shape, len(ms.mesh)))
 
 
 # ----------------------------------------------------------------------------
@@ -271,41 +426,74 @@ def survivor_stats(q_kh, q_val, q_mask, q_cmin, q_cmax, shard: IndexShard,
                         alpha)
 
 
-def pruned(q_kh, q_val, q_mask, q_cmin, q_cmax, shard: IndexShard, surv,
-           valid, shape: ShapePolicy, ops: np.ndarray):
+def _owned_stats(qa, ms: MeshShard, surv, valid, score_chunk: int,
+                 est: str, alpha):
+    """Stage 2 over a mesh: the survivor list ``surv [M]`` (global ids,
+    ``valid`` flags the real ones; on any device) goes to every shard,
+    which gathers the survivors it owns into a masked sub-shard and scores
+    it — the others stay masked (−inf). → per shard (r, m, ci_len) ``[B,
+    M]`` and the global ids ``surv`` on its device."""
+    stats, gids = [], []
+    for d, (blk, dev) in enumerate(zip(ms.blocks, ms.mesh)):
+        g = surv.to(dev)
+        loc = g.to(torch.int64) - ms.offset(d)
+        ok = valid.to(dev) & (loc >= 0) & (loc < ms.width)
+        with D.on(dev):
+            stats.append(survivor_stats(*_on(qa, dev), blk,
+                                        torch.clamp(loc, 0, ms.width - 1), ok,
+                                        score_chunk, est, alpha))
+        gids.append(g)
+    return stats, gids
+
+
+def pruned(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, surv, valid,
+           shape: ShapePolicy, ops: np.ndarray):
     """Gather + score + rank of ``M`` survivor columns (a rung of the
     ``prune_base · 2^i`` ladder, ``M ≥ k_max``; the filter ran on the
-    host) → top-``k_max`` (scores, index ids, r, m)."""
+    host), each scored on the shard that owns it → top-``k_max`` (scores,
+    index ids, r, m)."""
     if shape.k_max > surv.shape[0]:
         raise ValueError(f"rung {surv.shape[0]} is below k_max={shape.k_max}")
+    ms = as_mesh_shard(shard)
     est, scorer, alpha, floor = _unpack(ops)
-    r, m, ci_len = survivor_stats(q_kh, q_val, q_mask, q_cmin, q_cmax, shard,
-                                  surv, valid, shape.score_chunk, est, alpha)
-    s = score_stats(r, m, ci_len, scorer, floor)
-    return topk(s, r, m, shape.k_max, gids=surv)
+    stats, gids = _owned_stats((q_kh, q_val, q_mask, q_cmin, q_cmax), ms,
+                               surv, valid, shape.score_chunk, est, alpha)
+    return _rank(stats, gids, scorer, floor, shape.k_max,
+                 _plan_combine(shape, len(ms.mesh)))
 
 
-def topm(q_kh, q_val, q_mask, q_cmin, q_cmax, shard: IndexShard,
-         shape: ShapePolicy, ops: np.ndarray):
-    """The ``prune="topm"`` plan on the scan source: probe, then each row
-    keeps its own M = ``prune_m`` best candidates by exact hits (ineligible
-    ones last, ties to the lower id) and scores only those → top-``k_max``
-    (scores, index ids, r, m). Rows have their own candidate sets, and s4
-    normalises over each row's own list, so each row is scored by itself
-    against its gathered ``[M, n]`` planes."""
+def topm(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, shape: ShapePolicy,
+         ops: np.ndarray):
+    """The ``prune="topm"`` plan on the scan source: every shard probes its
+    block, and each row keeps its own M = ``prune_m`` best candidates of
+    the shard by exact hits (ineligible ones last, ties to the lower id)
+    and scores only those → top-``k_max`` (scores, index ids, r, m). With
+    ``prune_m`` at least a row's eligible count per shard this scores every
+    candidate that can score at all. Rows have their own candidate sets, so
+    each row is scored by itself against its gathered ``[M, n]`` planes
+    (in ascending id order); s4 normalises over the row's lists of every
+    shard."""
+    ms = as_mesh_shard(shard)
     est, scorer, alpha, floor = _unpack(ops)
-    C = shard.num_columns
-    M = max(min(int(shape.prune_m), C), min(shape.k_max, C))
-    hits = probe(q_kh, q_mask, shard)
-    hits = torch.where(hits >= floor, hits, -1.0)
-    ids = torch.sort(hits, dim=-1, descending=True, stable=True).indices[:, :M]
-    stats = [_shard_stats(q_kh[b:b + 1], q_val[b:b + 1], q_mask[b:b + 1],
-                          q_cmin[b:b + 1], q_cmax[b:b + 1],
-                          _gather_rows(shard, ids[b]), shape.score_chunk, est,
-                          alpha) for b in range(q_kh.shape[0])]
-    r, m, ci_len = (torch.cat(x) for x in zip(*stats))
-    s = score_stats(r, m, ci_len, scorer, floor)
-    return topk(s, r, m, shape.k_max, gids=ids)
+    w = ms.width
+    M = max(min(int(shape.prune_m), w), min(shape.k_max, w))
+    stats, gids = [], []
+    for d, (blk, dev) in enumerate(zip(ms.blocks, ms.mesh)):
+        qk, qv, qm, qlo, qhi = _on((q_kh, q_val, q_mask, q_cmin, q_cmax), dev)
+        with D.on(dev):
+            hits = probe(qk, qm, blk)
+            hits = torch.where(hits >= floor, hits, -1.0)
+            ids = torch.sort(hits, dim=-1, descending=True,
+                             stable=True).indices[:, :M]
+            ids = torch.sort(ids, dim=-1).values
+            rows = [_shard_stats(qk[b:b + 1], qv[b:b + 1], qm[b:b + 1],
+                                 qlo[b:b + 1], qhi[b:b + 1],
+                                 _gather_rows(blk, ids[b]), shape.score_chunk,
+                                 est, alpha) for b in range(qk.shape[0])]
+        stats.append(tuple(torch.cat(x) for x in zip(*rows)))
+        gids.append(ids + ms.offset(d))
+    return _rank(stats, gids, scorer, floor, shape.k_max,
+                 _plan_combine(shape, len(ms.mesh)))
 
 
 def postings_window_candidates(q_kh, q_mask, keys, cols, W: int):
@@ -327,26 +515,31 @@ def postings_window_candidates(q_kh, q_mask, keys, cols, W: int):
     return torch.where(match, c_g, -1).reshape(B, n * W)
 
 
-def inverted(q_kh, q_val, q_mask, q_cmin, q_cmax, shard: IndexShard, keys,
-             cols, W: int, M: int, shape: ShapePolicy, ops: np.ndarray):
+def inverted(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, keys, cols,
+             W: int, M: int, shape: ShapePolicy, ops: np.ndarray):
     """The fused inverted ``safe`` plan (DESIGN.md §11): postings probe →
     merge → device survivor select → gather → score → rank, with no
     ``[B, C]`` hit matrix and no host round trip inside → top-``k_max``
     (scores, index ids, r, m) and the exact survivor-union size ``n_surv``
-    (a 0-d tensor). ``n_surv > M`` means the rung overflowed: the scored
-    survivors are then the M smallest ids, and the caller re-dispatches on
-    the covering rung."""
+    (a 0-d tensor). The probe, merge and select run where the postings
+    are (the index's global ids, replicated for every shard); each shard
+    then scores the survivors it owns. ``n_surv > M`` means the rung
+    overflowed: the scored survivors are then the M smallest ids, and the
+    caller re-dispatches on the covering rung."""
     if shape.k_max > M:
         raise ValueError(f"rung {M} is below k_max={shape.k_max}")
+    ms = as_mesh_shard(shard)
     est, scorer, alpha, floor = _unpack(ops)
-    cand = postings_window_candidates(q_kh, q_mask, keys, cols, W)
-    mcols, mcnt = K.postings_merge(cand, shard.num_columns)
-    surv, valid, n_surv = K.postings_select(mcols, mcnt, floor, M,
-                                            shard.num_columns)
-    r, m, ci_len = survivor_stats(q_kh, q_val, q_mask, q_cmin, q_cmax, shard,
-                                  surv, valid, shape.score_chunk, est, alpha)
-    s = score_stats(r, m, ci_len, scorer, floor)
-    return topk(s, r, m, shape.k_max, gids=surv) + (n_surv,)
+    qa = _on((q_kh, q_val, q_mask, q_cmin, q_cmax), keys.device)
+    with D.on(keys.device):
+        cand = postings_window_candidates(qa[0], qa[2], keys, cols, W)
+        mcols, mcnt = K.postings_merge(cand, ms.num_columns)
+        surv, valid, n_surv = K.postings_select(mcols, mcnt, floor, M,
+                                                ms.num_columns)
+    stats, gids = _owned_stats(qa, ms, surv, valid, shape.score_chunk, est,
+                               alpha)
+    return _rank(stats, gids, scorer, floor, shape.k_max,
+                 _plan_combine(shape, len(ms.mesh))) + (n_surv,)
 
 
 def select_survivors(hits, prune: str, min_sample: int = 3,
@@ -371,11 +564,14 @@ def select_survivors(hits, prune: str, min_sample: int = 3,
     raise ValueError(f"unknown prune mode {prune!r}: use 'safe' or 'topm'")
 
 
-def prune_rung(n_survivors: int, base: int, C: int) -> Optional[int]:
+def prune_rung(n_survivors: int, base: int, C: int,
+               ndev: int = 1) -> Optional[int]:
     """Smallest rung of the ladder ``base · 2^i`` holding ``n_survivors``,
-    or None when it would not beat the full scan (≥ C columns) — the
-    caller then scans."""
+    rounded up to a multiple of the shard count ``ndev``, or None when it
+    would not beat the full scan (≥ the C padded columns) — the caller
+    then scans."""
     r = max(int(base), 1)
     while r < max(n_survivors, 1):
         r *= 2
+    r += (-r) % int(ndev)
     return None if r >= C else r

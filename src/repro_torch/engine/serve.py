@@ -1,11 +1,16 @@
-"""Request serving on one device (DESIGN.md §6): a static sketch index, or
-a live index served segment by segment.
+"""Request serving (DESIGN.md §6, §10): a static sketch index, or a live
+index served segment by segment, on one device or column-sharded over a
+device mesh (`repro_torch.launch.mesh`).
 
 `Server` is the facade. Over a `SketchIndex` it runs one segment executor;
 over a `repro_torch.engine.lifecycle.LiveIndex` it runs one per segment,
 picks up mutations on `Server.refresh` and combines the segments' results
 deterministically (score descending, then global id ascending; id −1 on
-−inf rows), ids indexing `Server.names`. A segment executor does:
+−inf rows), ids indexing `Server.names`. Each segment is placed over the
+mesh when it is published (`engine.index.place_shard`): shard ``d`` scores
+its own column block on ``mesh[d]`` and the shards' top-k strips combine
+in the same order (`plans.ShapePolicy.combine`), so a sharded server
+answers as a one-device server does. A segment executor does:
 
   * **batched sketch construction** — query columns are cut into
     fixed-length row chunks, all chunks are sketched in one batched
@@ -38,6 +43,7 @@ segment's candidate list; s1 and s2 equal a static server's throughout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -58,8 +64,9 @@ from repro_torch.engine import lifecycle as LC
 from repro_torch.engine import plans as PL
 from repro_torch.engine.index import (IndexShard, KeyMinima, Postings,
                                       build_postings, key_minima,
-                                      query_arrays)
+                                      place_shard, query_arrays)
 from repro_torch.kernels import ops as K
+from repro_torch.launch import mesh as MS
 
 #: rows (bucket B × candidates) of one scored block: bucket B scores
 #: min(score_chunk, max(64, BLOCK_ROWS // B)) candidates at a time, which
@@ -77,6 +84,12 @@ _DEVICE_STAGES = ("stage1", "stage2", "scan", "topm", "fused")
 
 #: metrics `search_joinable` can rank by (fields of JoinabilityEstimates)
 JOIN_METRICS = ("containment", "jaccard", "join_size", "hits")
+
+#: process-wide lock of sharded dispatches: one dispatch's per-shard
+#: launches (and its cross-shard reductions) never interleave with another
+#: thread's, so two scheduler workers serialise on a mesh; a one-device
+#: executor does not take it
+_MESH_DISPATCH_LOCK = threading.RLock()
 
 
 def build_query_sketches(keys_list: Sequence[np.ndarray],
@@ -189,28 +202,32 @@ def _drop_ineligible(s, g, r, m):
 
 
 class _SegmentExec:
-    """Serves queries against one resident index shard: a static index, or
-    one segment of a live index. `Server` is the facade over one or many.
+    """Serves queries against one resident index: a static index, or one
+    segment of a live index, column-sharded over ``mesh`` (a one-device
+    mesh is the plain case). `Server` is the facade over one or many.
 
-    ``shape.k_max`` is clamped to the shard's column count, so a small
-    segment still serves; ``candidates="auto"`` resolves against that
-    count. ``postings`` (a live segment's, maintained by its writes and
-    tombstones) back the inverted source instead of a fresh build."""
+    ``C`` is the padded column count (a multiple of the shard count);
+    ``shape.k_max`` is clamped to it, so a small segment still serves, and
+    ``candidates="auto"`` resolves against it. ``postings`` (a live
+    segment's, maintained by its writes and tombstones) back the inverted
+    source instead of a fresh build; the inverted probe runs on
+    ``mesh[0]`` over global ids."""
 
     def __init__(self, shard: IndexShard, n: int, shape: PL.ShapePolicy, *,
                  request: PL.Request, buckets: Tuple[int, ...],
-                 device: torch.device,
-                 postings: Optional[Postings] = None):
-        self.device = device
-        self.shard = shard.to(device)
+                 mesh: MS.Mesh, postings: Optional[Postings] = None):
+        self.mesh = tuple(mesh)
+        self.device = self.mesh[0]
+        self.shard = place_shard(shard, self.mesh)
         self.n = int(n)
         self.C = self.shard.num_columns
+        shape = PL.resolve_shape(shape, self.mesh, num_columns=self.C)
         if shape.k_max > self.C:  # a corpus smaller than k_max still serves
             shape = dataclasses.replace(shape, k_max=self.C)
         self.shape = shape
         self.k_max = shape.k_max
         #: the concrete stage-1 source ("auto" resolved against C)
-        self.candidates = PL.resolve_candidates(shape.candidates, self.C)
+        self.candidates = shape.candidates
         self.request = request
         self.buckets = buckets
         self._postings = postings
@@ -247,15 +264,29 @@ class _SegmentExec:
         return dataclasses.replace(self.shape, score_chunk=chunk)
 
     def prune_rungs(self) -> List[int]:
-        """The survivor ladder ``prune_base · 2^i``: the rungs strictly
-        below C and not below k_max (`PL.prune_rung` never picks those)."""
+        """The survivor ladder ``prune_base · 2^i``, each rung rounded up to
+        a multiple of the shard count: the rungs strictly below C and not
+        below k_max (`PL.prune_rung` never picks those)."""
+        ndev = len(self.mesh)
         rungs: List[int] = []
         r = max(int(self.shape.prune_base), 1)
-        while r < self.C:
-            if r >= self.k_max:
-                rungs.append(r)
+        while True:
+            ra = r + (-r) % ndev
+            if ra >= self.C:
+                return rungs
+            if r >= self.k_max and ra not in rungs:
+                rungs.append(ra)
             r *= 2
-        return rungs
+
+    def _rung(self, n_survivors: int) -> Optional[int]:
+        """The rung of ``n_survivors`` (at least k_max), or None: scan."""
+        return PL.prune_rung(max(n_survivors, self.k_max),
+                             self.shape.prune_base, self.C, len(self.mesh))
+
+    def _launch_lock(self):
+        """`_MESH_DISPATCH_LOCK` on a sharded mesh, a no-op otherwise."""
+        return (_MESH_DISPATCH_LOCK if len(self.mesh) > 1
+                else contextlib.nullcontext())
 
     def source(self):
         """The stage-1 candidate source of the resolved ``candidates``
@@ -264,7 +295,8 @@ class _SegmentExec:
         if self._source is None:
             if self.candidates == "inverted":
                 post = self._postings
-                post = (build_postings(self.shard.key_hash, self.shard.mask)
+                whole = self.shard.on(self.device)
+                post = (build_postings(whole.key_hash, whole.mask)
                         if post is None else
                         Postings(keys=post.keys.to(self.device),
                                  cols=post.cols.to(self.device),
@@ -292,7 +324,8 @@ class _SegmentExec:
         modes = tuple(modes) if modes is not None else PL.PRUNE_MODES
         for mode in modes:
             PL.request_operands(dataclasses.replace(self.request, prune=mode))
-        K.load_kernels(self.device)
+        for dev in set(self.mesh):
+            K.load_kernels(dev)
         cost_req = (self.request if self.request.prune in modes else
                     dataclasses.replace(self.request, prune=modes[0]))
         ops = PL.request_operands(cost_req)
@@ -387,8 +420,7 @@ class _SegmentExec:
         surv = PL.select_survivors(hits, prune=prune,
                                    min_sample=req.min_sample,
                                    prune_m=self.shape.prune_m)
-        rung = PL.prune_rung(max(len(surv), self.k_max),
-                             self.shape.prune_base, self.C)
+        rung = self._rung(len(surv))
         self._stage("select", t0)
         if rung is None:
             return self._scan(qa, B, ops)
@@ -422,8 +454,7 @@ class _SegmentExec:
                                         src.W, M, self.shape_for(B), ops))
             self._stage("fused", t0)
             n = int(n)
-            need = PL.prune_rung(max(n, self.k_max), self.shape.prune_base,
-                                 self.C)
+            need = self._rung(n)
             if n <= M:
                 self._fused_rung = need if need is not None else M
                 return _drop_ineligible(*out)
@@ -445,9 +476,10 @@ class _SegmentExec:
         """Pad a ≤B slice of queries to the bucket, serve, slice back. A
         two-stage request counts as one dispatch."""
         qa = self._pad(qa, nq, B)
-        t0 = time.perf_counter()
-        out = self._serve(qa, nq, B, req, ops)
-        dt = time.perf_counter() - t0
+        with self._launch_lock():
+            t0 = time.perf_counter()
+            out = self._serve(qa, nq, B, req, ops)
+            dt = time.perf_counter() - t0
         with self._tel_lock:
             self.dispatch_log.append((B, nq, dt))
             self._total_queries += nq
@@ -481,7 +513,7 @@ class _SegmentExec:
         """The index's KMV key-minima layout (`engine.index.key_minima`)
         and its D̂_C estimates, built on first use."""
         if self._minima is None:
-            self._minima = key_minima(self.shard)
+            self._minima = key_minima(self.shard.on(self.device))
             self._minima_dc = CT.distinct_from_minima(
                 self._minima.count, self._minima.tau, self.n)
         return self._minima
@@ -496,9 +528,10 @@ class _SegmentExec:
             B = self.bucket_for(min(nq - s, self.buckets[-1]))
             e = min(s + B, nq)
             part = self._pad(tuple(a[s:e] for a in qa), e - s, B)
-            t0 = time.perf_counter()
-            rows.append(self.source().hit_counts(part)[:e - s])
-            self._stage("stage1", t0)
+            with self._launch_lock():
+                t0 = time.perf_counter()
+                rows.append(self.source().hit_counts(part)[:e - s])
+                self._stage("stage1", t0)
             s = e
         return np.concatenate(rows, axis=0)
 
@@ -588,8 +621,11 @@ class Server:
     segment) or a `repro_torch.engine.lifecycle.LiveIndex` (one executor
     per segment, `refresh` picking up its mutations).
 
-    ``device`` defaults to the CUDA card (raising when there is none).
-    ``policy`` is the `ShapePolicy`, ``request`` the default `Request` —
+    ``mesh`` (a sequence of devices, `repro_torch.launch.mesh`) shards
+    every segment's columns over its devices; ``device`` means a one-device
+    mesh and defaults to the CUDA card (raising when there is none).
+    ``policy`` is the `ShapePolicy` (its mesh fields resolved against the
+    mesh, `plans.resolve_shape`), ``request`` the default `Request` —
     every query method takes a per-call ``request=`` override.
     ``candidates="auto"`` resolves per segment against its column count.
     Results combine across segments deterministically (score descending,
@@ -602,10 +638,11 @@ class Server:
     def __init__(self, source, policy: Optional[PL.ShapePolicy] = None, *,
                  request: Optional[PL.Request] = None,
                  buckets: Sequence[int] = (1, 8, 32),
-                 device: D.DeviceLike = None):
-        self.device = D.resolve(device)
-        self.shape = policy if policy is not None else PL.ShapePolicy()
-        PL.resolve_candidates(self.shape.candidates, 0)
+                 device: D.DeviceLike = None, mesh=None):
+        self.mesh = MS.as_mesh(mesh, device)
+        self.device = self.mesh[0]
+        self.shape = PL.resolve_shape(
+            policy if policy is not None else PL.ShapePolicy(), self.mesh)
         self.request = request if request is not None else PL.Request()
         PL.request_operands(self.request)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -669,19 +706,23 @@ class Server:
     def _make_exec(self, shard: IndexShard,
                    postings: Optional[Postings] = None) -> _SegmentExec:
         ex = _SegmentExec(shard, self.n, self.shape, request=self.request,
-                          buckets=self.buckets, device=self.device,
+                          buckets=self.buckets, mesh=self.mesh,
                           postings=postings)
         ex._bucket_cost = dict(self._cap_costs.get(ex.C, {}))
         ex.fused_safe = self._fused_safe
         return ex
 
+    def _padded(self, capacity: int) -> int:
+        """A segment's column count once placed over the mesh."""
+        return capacity + (-capacity) % len(self.mesh)
+
     def _inverted(self, capacity: int) -> bool:
         return PL.resolve_candidates(self.shape.candidates,
-                                     capacity) == "inverted"
+                                     self._padded(capacity)) == "inverted"
 
     def refresh(self) -> None:
-        """Sync with a live index: place new and changed segments on the
-        device, drop removed ones, rebuild the global-id catalog. A no-op
+        """Sync with a live index: place new and changed segments over the
+        mesh, drop removed ones, rebuild the global-id catalog. A no-op
         for a static index, and free when the index's version has not
         moved. The index lock is held only to snapshot the changed
         segments' host state; placement happens after it is released."""
@@ -753,7 +794,8 @@ class Server:
             ahead = {self._live.delta_cap,
                      LC.ladder_rung(self._live.live_columns(),
                                     self._live.delta_cap)}
-            for cap in sorted(ahead - warmed):
+            for cap in sorted(c for c in ahead
+                              if self._padded(c) not in warmed):
                 empty = LC.Segment.empty(-1, cap, self.n, self._live.agg,
                                          self._live.device)
                 ex = self._make_exec(
@@ -793,6 +835,9 @@ class Server:
         for e in view:
             if e.used and nq:
                 s, g, r, m = e.exec.query_batch(sketches, req)
+                # slots past the used ones (a segment's free tail, the
+                # mesh's pad columns) rank last and are never returned
+                s = np.where(g < e.used, s, -np.inf).astype(np.float32)
                 parts.append((s, g + e.base, r, m))
         if parts:
             sc, g, r, m = (np.concatenate(p, axis=1) for p in zip(*parts))

@@ -133,7 +133,10 @@ def hoeffding_from_moments(moments, c_low, c_high, alpha=0.05):
     C = torch.clamp(c_high - c_low, min=1e-30)
     log_term = torch.log(10.0 / alpha)
     t = torch.sqrt(log_term * C * C / (2.0 * msafe))
-    tp = torch.sqrt(log_term * C ** 4 / (2.0 * msafe))
+    # C⁴ as two squarings, as the reference's integer power computes it:
+    # torch's pow(C, 4) rounds differently in its vector body and its
+    # scalar tail, so a candidate's bound would depend on its position
+    tp = torch.sqrt(log_term * ((C * C) * (C * C)) / (2.0 * msafe))
     num_lo = (vab - tp) - (mu_a + t) * (mu_b + t)
     num_hi = (vab + tp) - (mu_a - t) * (mu_b - t)
     den_lo = torch.sqrt(torch.clamp((va - tp) - (mu_a + t) ** 2, min=0.0)

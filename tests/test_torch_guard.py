@@ -17,13 +17,14 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 39, mods
+assert len(mods) >= 43, mods
 for new in ("core.containment", "engine.candidates", "kernels.containment",
             "kernels.postings", "engine.lifecycle", "kernels.hash_build",
             "core.estimators", "core.join", "core.ranking",
             "engine.scheduler", "quickstart", "configs", "configs.base",
             "configs.registry", "models", "models.params", "models.layers",
-            "models.transformer", "kernels.flash_attention"):
+            "models.transformer", "kernels.flash_attention", "launch",
+            "launch.mesh", "launch.serve", "serve_queries"):
     assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]

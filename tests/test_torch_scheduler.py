@@ -32,6 +32,7 @@ from repro_torch.engine import lifecycle as TL
 from repro_torch.engine import plans as TPL
 from repro_torch.engine import serve as TSV
 from repro_torch.engine.scheduler import AsyncScheduler
+from repro_torch.launch.mesh import make_host_mesh
 
 from test_two_stage import _corpus, _queries
 
@@ -241,12 +242,12 @@ def _apply(live, op):
         live.compact()
 
 
-def _live_server(rng):
+def _live_server(rng, shards: int = 1):
     live = TL.LiveIndex(n=N_SKETCH, delta_cap=8, device="cpu")
     live.append(_corpus(rng, n_tables=5))
     srv = TSV.Server(live, TPL.ShapePolicy(k_max=4, prune_base=2),
                      request=TPL.Request(k=4), buckets=(1, 2, 4),
-                     device="cpu")
+                     mesh=make_host_mesh(shards, device="cpu"))
     srv.warmup(modes=("off",), include_ladder=True)
     return live, srv
 
@@ -256,9 +257,20 @@ def test_stress_queries_race_mutations(rng):
     appends, deletes and compacts and `refresh()` republishes under them:
     no ticket fails, and every result equals the single-threaded oracle at
     a version inside the query's submit→complete window."""
+    _race_mutations(rng, shards=1)
+
+
+def test_stress_queries_race_mutations_on_a_mesh(rng):
+    """The same race with every segment sharded over a 4-shard mesh: the
+    workers' sharded dispatches serialise on the mesh lock, and every
+    result equals the one-device oracle at a version in its window."""
+    _race_mutations(rng, shards=4)
+
+
+def _race_mutations(rng, shards: int):
     seed = int(rng.integers(1 << 30))
     rng_live = np.random.default_rng(seed)
-    live, srv = _live_server(rng_live)
+    live, srv = _live_server(rng_live, shards)
     script = _mutation_script(rng_live)
     sks = _qsks(np.random.default_rng(seed + 1), 1)
 
