@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's join-correlation query paths (on one device
-and column-sharded over a device mesh), its serving drivers, and its LM
+and column-sharded over a device mesh), its serving drivers, its legacy
+query API and the paper's augmentation example, and its LM
 serving paths (dense, hybrid SSM, encoder–decoder, MoE, RWKV6), on one
 CUDA card.
 
@@ -162,6 +163,28 @@ fatal on failure (exit code 1, no result line):
                 drivers run on the card: ``launch.serve --tables 2000
                 --queries 200 --batch 32`` and ``serve_queries`` at its
                 defaults.
+  10c. legacy — the legacy query API on the phase-3 index, with every
+                launch count at 0: (a) `engine.query.query()` for 8 of 32
+                planted queries × the four estimators (s4) must equal
+                each query's row of a 32-query `Server.query_batch` bit
+                for bit and rank a column of its planted table first; each
+                call launches the sketch join (and the rank or Qn kernel)
+                once per 512-candidate chunk; p50/p99 of a call by CUDA
+                events and by the host clock; (b) at B = 32,
+                `make_query_fn` (four estimators), `make_stage1_fn` (==
+                `Server.stage1_hits`) → `select_survivors` →
+                `make_pruned_query_fn` at the covering rung, and
+                `make_topm_query_fn` must equal `Server` bit for bit; (c)
+                `QueryServer` on the index and `LiveQueryServer` on a
+                `LiveIndex` of the lifecycle phase's shape (3840 tables, 8
+                segments), each warmed and serving under ``off`` and
+                ``safe``, equal `Server` bit for bit (the −inf rows'
+                ids apart); (d) `query()` on the index sharded over a
+                4-shard mesh equals one device bit for bit; (e) the
+                augmentation example (`repro_torch.train_augmented`) on the
+                card finds both drivers and cuts the RMSE below 0.6×. The
+                sketch join, rank_moments, qn_correlation,
+                containment_hits and hash_build must have launched.
   11. flash_attention — the kernel against its twin (2e-3 with a float32
                 output, 2e-2 with bfloat16: the reference sweep's
                 tolerances; 1e-4 at the prefill shape, where the split-TF32
@@ -254,7 +277,9 @@ goodput, latencies, misses, coalescing, the race's ticket counts), a
 ``sharded`` JSON line (warmup and sweep seconds, launches, per-shard
 launch counts, ranked ids per shard, the off dispatch p50/p99 at 4 shards
 and on one device, the row-sharded build's error and seconds), the two
-drivers' own lines, an
+drivers' own lines, a ``legacy`` JSON line (calls, bit-identity checks,
+single-query p50/p99 by CUDA events and the host clock, launches per
+kernel, the augmentation example's picks and RMSE), an
 ``lm`` JSON line (prefill seconds and tokens/s, decode ms per step p50 and
 p99, peak device memory, flash_attention launches, the checks' errors and
 a profile of one prefill and one decode step: attention, matrix products,
@@ -278,6 +303,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -309,6 +335,8 @@ from repro_torch.kernels import postings as PM  # noqa: E402
 from repro_torch.kernels import rank_transform as RT  # noqa: E402
 from repro_torch.kernels import sketch_join as SJ  # noqa: E402
 from repro_torch import serve_queries  # noqa: E402
+from repro_torch import train_augmented  # noqa: E402
+from repro_torch.engine import query as Q  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 
@@ -373,6 +401,11 @@ SHARD_BUILD_TABLES = 128
 #: the two drivers the sharded phase runs on the card, at their defaults
 #: (launch.serve at the size its docstring gives)
 SERVE_ARGS = ["--tables", "2000", "--queries", "200", "--batch", "32"]
+#: the legacy phase: planted queries of its 32-query batch, those run one by
+#: one, and the kernels its paths launch
+LEGACY_QUERIES = 32
+LEGACY_SINGLE = 8
+LEGACY_KERNELS = SCAN_KERNELS + ("containment_hits", "hash_build")
 #: the LM phase: the config served at full width, prompts × prompt tokens
 #: and greedy steps (2016 + 32 = tinyllama's published 2048-token
 #: context), and the card-vs-CPU check's layers, tokens and steps
@@ -1949,6 +1982,190 @@ def phase_sharded(index, groups, dev):
 
 
 # ----------------------------------------------------------------------------
+# the legacy query API and the augmentation example
+# ----------------------------------------------------------------------------
+
+def _host_np(out):
+    return tuple(x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                 for x in out)
+
+
+def _bit_equal(what, got, want):
+    """Fail unless every output of ``got`` equals ``want``'s bit for bit."""
+    got, want = _host_np(got), _host_np(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            fail(f"legacy {what}: output {i} differs (bit for bit)")
+
+
+def _timed_single(fn):
+    """One call of ``fn`` (it returns card tensors): (ms by CUDA events, ms
+    by the host clock), the host's including the wait for the results."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1), 1e3 * (time.perf_counter() - h0)
+
+
+def phase_legacy(index, groups, keys, vals, best, dev):
+    """The legacy query API on the card: (a) `query()` for single planted
+    queries against their rows of `Server.query_batch`, (b) the batched
+    `make_*_query_fn` builders against `Server`, (c) `QueryServer` and
+    `LiveQueryServer` against `Server`, (d) `query()` over a 4-shard mesh
+    against one device, (e) the augmentation example. Returns the phase's
+    launches."""
+    mesh1 = (dev,)
+    qk, qv, qb = keys[:LEGACY_QUERIES], vals[:LEGACY_QUERIES], best[:LEGACY_QUERIES]
+    sk = SV.build_query_sketches(qk, qv, n=N, device=dev)
+    qa = TI.query_arrays(sk)
+    C = index.shard.num_columns
+    srv = SV.Server(index, buckets=(BUCKET,))
+    line = dict(queries=LEGACY_QUERIES, single_queries=LEGACY_SINGLE, columns=C)
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+
+    # (a) single queries against their rows of a 32-query Server batch
+    rows, ev, host, per_call, server_ms, builder_ms = {}, [], [], {}, {}, {}
+    for est in PL.ESTIMATORS:
+        t0 = time.perf_counter()
+        rows[est] = srv.query_batch(sk, request=PL.Request(estimator=est))
+        server_ms[est] = 1e3 * (time.perf_counter() - t0)
+        qcfg = Q.QueryConfig(k=10, estimator=est, scorer="s4")
+        for i in range(LEGACY_SINGLE):
+            one = sk.map(lambda t, i=i: t[i])
+            if i == 0:
+                per_call[est] = _launched(lambda: Q.query(index.shard, one, mesh1, qcfg))
+            out, e_ms, h_ms = _timed_single(lambda: Q.query(index.shard, one, mesh1, qcfg))
+            ev.append(e_ms)
+            host.append(h_ms)
+            got = _host_np(out)
+            _bit_equal(f"query() {est} query {i}", got,
+                       tuple(x[i] for x in rows[est]))
+            if not (np.isfinite(got[0][0]) and got[1][0] // COLS == qb[i] // COLS):
+                fail(f"legacy query() {est} query {i}: top-1 id {got[1][0]} is "
+                     f"not a column of its planted table {qb[i] // COLS}")
+    chunks = -(-C // Q.QueryConfig().score_chunk)
+    want = {"pearson": {"sketch_join_moments": chunks},
+            "spearman": {"sketch_join_moments": chunks, "rank_moments": chunks},
+            "rin": {"sketch_join_moments": chunks, "rank_moments": chunks},
+            "qn": {"sketch_join_moments": chunks, "qn_correlation": chunks}}
+    if per_call != want:
+        fail(f"legacy query(): launches {per_call}, want {want}")
+    line["single_calls"] = len(ev)
+    line["single_launches"] = per_call
+    line["single_ms_events_p50_p99"] = [_pct(np.array(ev) / 1e3, 50), _pct(np.array(ev) / 1e3, 99)]
+    line["single_ms_host_p50_p99"] = [_pct(np.array(host) / 1e3, 50),
+                                      _pct(np.array(host) / 1e3, 99)]
+
+    # (b) the batched builders at B = 32 against the Server
+    for est in PL.ESTIMATORS:
+        qcfg = Q.QueryConfig(k=10, estimator=est, scorer="s4")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            fn = Q.make_query_fn(mesh1, C, N, qcfg, batch=BUCKET)
+        t0 = time.perf_counter()
+        out = _host_np(fn(*qa, index.shard))
+        builder_ms[est] = 1e3 * (time.perf_counter() - t0)
+        _bit_equal(f"make_query_fn {est}", out, rows[est])
+    # one 32-query off call, host clock: Server (chunks of 128 candidates)
+    # against make_query_fn (the config's 512)
+    line["off_32_ms_server_vs_make_query_fn"] = {
+        est: [server_ms[est], builder_ms[est]] for est in PL.ESTIMATORS}
+    qcfg = Q.QueryConfig(k=10, scorer="s4", prune="safe")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        hits = Q.make_stage1_fn(mesh1, C, N, qcfg, batch=BUCKET)(*qa, index.shard)
+        hits = hits.cpu().numpy()
+        if not np.array_equal(hits, srv.stage1_hits(sk)):
+            fail("legacy make_stage1_fn: hits differ from Server.stage1_hits")
+        surv = Q.select_survivors(hits, qcfg)
+        M = Q.prune_rung(max(len(surv), qcfg.k), qcfg.prune_base, C, 1)
+        if M is None:
+            fail(f"legacy: {len(surv)} survivors fit no rung below {C}")
+        idx = np.zeros((M,), np.int32)
+        idx[:len(surv)] = surv
+        pruned = Q.make_pruned_query_fn(mesh1, C, N, qcfg, M, batch=BUCKET)(
+            *qa, index.shard, torch.from_numpy(idx).to(dev),
+            torch.from_numpy(np.arange(M) < len(surv)).to(dev))
+        topm = Q.make_topm_query_fn(mesh1, C, N, dataclasses.replace(qcfg, prune="topm"),
+                                    batch=BUCKET)(*qa, index.shard)
+    _bit_equal("make_pruned_query_fn", pruned, srv.query_batch(sk, request=PL.Request(prune="safe")))
+    _bit_equal("make_topm_query_fn", topm, srv.query_batch(sk, request=PL.Request(prune="topm")))
+    line["safe_survivors"], line["safe_rung"] = len(surv), M
+
+    # (c) the deprecated servers against the Server, off and safe
+    live = LC.LiveIndex(n=N, delta_cap=LIVE_CAP, device=dev)
+    live.append(groups[:LIVE_FIRST])
+    live_srv = SV.Server(live, buckets=(BUCKET,))
+    for prune in ("off", "safe"):
+        qcfg = Q.QueryConfig(k=10, scorer="s4", prune=prune)
+        req = PL.Request(prune=prune)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            qs = SV.QueryServer(mesh1, index.shard, qcfg, buckets=(BUCKET,), index=index)
+            ls = LC.LiveQueryServer(mesh1, live, qcfg, buckets=(BUCKET,))
+        qs.warmup()
+        ls.warmup(include_ladder=False)
+        got, want = _host_np(qs.query_batch(sk)), rows["pearson"] if prune == "off" \
+            else srv.query_batch(sk, request=req)
+        fin = np.isfinite(want[0])
+        if not (np.array_equal(np.isfinite(got[0]), fin)
+                and all(np.array_equal(g[fin], w[fin]) for g, w in zip(got, want))):
+            fail(f"legacy QueryServer {prune}: differs from Server")
+        _bit_equal(f"LiveQueryServer {prune}", ls.query_batch(sk, True),
+                   live_srv.query_batch(sk, request=req))
+    line["live_segments"] = live.stats()["segments"]
+    del live, live_srv, qs, ls
+
+    # (d) query() over a 4-shard mesh against one device
+    mesh4 = make_host_mesh(SHARDS)
+    sharded = TI.shard_for_mesh(index, mesh4)
+    for est in PL.ESTIMATORS:
+        qcfg = Q.QueryConfig(k=10, estimator=est, scorer="s4")
+        for i in range(LEGACY_SINGLE):
+            one = sk.map(lambda t, i=i: t[i])
+            _bit_equal(f"query() 4 shards {est} query {i}",
+                       Q.query(sharded, one, mesh4, qcfg),
+                       tuple(x[i] for x in rows[est]))
+    del sharded
+    line["api_s"] = time.perf_counter() - t_phase
+
+    # (e) the paper's augmentation example on the card
+    t0 = time.perf_counter()
+    try:
+        picked, r_hat, r0, r1 = train_augmented.discover_and_augment(dev)
+    except AssertionError as e:
+        fail(f"legacy train_augmented: {e or 'an assert failed'}")
+    line["augment"] = dict(picked=picked, r_hat=[float(x) for x in r_hat],
+                           rmse=[r0, r1], seconds=time.perf_counter() - t0)
+    launches = ops.launches()
+    missing = [k for k in LEGACY_KERNELS if not launches[k]]
+    if missing:
+        fail(f"legacy: {missing} never launched")
+    line["launches"] = {k: v for k, v in launches.items() if v}
+    line["bit_identical"] = dict(single_vs_server_rows=len(ev), builders=4 + 3,
+                                 query_server=2, live_query_server=2,
+                                 four_shards=len(ev))
+    say("legacy " + json.dumps(line))
+    say(f"legacy: {len(ev)} single query() calls (8 planted queries × 4 estimators, "
+        f"s4) == their rows of Server.query_batch and == a {SHARDS}-shard mesh, bit "
+        f"for bit, each top-1 in its planted table; {chunks} sketch-join launches a "
+        f"call; p50/p99 {line['single_ms_events_p50_p99'][0]:.1f}/"
+        f"{line['single_ms_events_p50_p99'][1]:.1f} ms (CUDA events), "
+        f"{line['single_ms_host_p50_p99'][0]:.1f}/{line['single_ms_host_p50_p99'][1]:.1f} "
+        f"ms (host); make_query_fn × 4 estimators, make_stage1_fn → "
+        f"{len(surv)} survivors → make_pruned_query_fn at rung {M}, "
+        f"make_topm_query_fn == Server; QueryServer and LiveQueryServer "
+        f"({line['live_segments']} segments) off/safe == Server; train_augmented "
+        f"found {picked}, RMSE {r0:.3f} → {r1:.3f}")
+    return {k: v for k, v in launches.items() if k in LEGACY_KERNELS}
+
+
+# ----------------------------------------------------------------------------
 # the LM substrate: flash_attention, and tinyllama-1.1b served on the card
 # ----------------------------------------------------------------------------
 
@@ -2720,6 +2937,10 @@ def main(argv) -> None:
     timed("scheduler", phase_scheduler, index, groups, keys, vals, dev)
     # the sharded path's launches join each query kernel's and hash_build's
     for k, v in timed("sharded", phase_sharded, index, groups, dev).items():
+        launches[k] = launches.get(k, 0) + v
+    # so do the legacy API's and the augmentation example's
+    for k, v in timed("legacy", phase_legacy, index, groups, keys, vals, best,
+                      dev).items():
         launches[k] = launches.get(k, 0) + v
     rows.update(timed("flash_attention", phase_flash, dev))
     # flash_attention's launches: the sum over the six LM paths

@@ -6,8 +6,9 @@ column pair), `TableGroup` (a join-key column shared by C numeric columns),
 `group_corpus` / `grow_corpus` (a corpus of wide tables, and one arriving
 in batches, the live index's workload), `sbn_pair` (the SBN
 bivariate-normal pair), `skewed_pair` (an open-data-like pair) and
-`corpus` (a collection of either). Same seeds give the same
-tables as the JAX package's generators. For the LM substrate, `lm_batch`:
+`corpus` (a collection of either), and `joined_truth` (the exact join
+the estimates are scored against). Same seeds give the same tables as the
+JAX package's generators. For the LM substrate, `lm_batch`:
 seeded synthetic token batches, equal to the JAX package's for a seed.
 """
 from __future__ import annotations
@@ -184,3 +185,25 @@ def corpus(rng, n_tables: int, kind: str = "sbn", n_max: int = 100_000):
     (any other kind), for estimation-accuracy experiments."""
     gen = sbn_pair if kind == "sbn" else skewed_pair
     return [gen(rng, n_max=n_max) for _ in range(n_tables)]
+
+
+def joined_truth(tx: Table, ty: Table, agg: str = "mean"):
+    """Ground truth: the full join of two tables on their keys, each side's
+    values of a key aggregated by ``agg`` (mean, sum, min, max, count,
+    first, last; NaN values dropped first) → (x_joined, y_joined), float64
+    arrays aligned on the ascending common keys."""
+    import collections
+    ax: dict = collections.defaultdict(list)
+    ay: dict = collections.defaultdict(list)
+    for k, v in zip(tx.keys.tolist(), tx.values.tolist()):
+        if np.isfinite(v):
+            ax[k].append(v)
+    for k, v in zip(ty.keys.tolist(), ty.values.tolist()):
+        if np.isfinite(v):
+            ay[k].append(v)
+    f = {"mean": np.mean, "sum": np.sum, "min": np.min, "max": np.max,
+         "count": len, "first": lambda s: s[0], "last": lambda s: s[-1]}[agg]
+    common = sorted(set(ax) & set(ay))
+    x = np.array([f(ax[k]) for k in common], np.float64)
+    y = np.array([f(ay[k]) for k in common], np.float64)
+    return x, y

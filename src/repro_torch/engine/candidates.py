@@ -14,9 +14,12 @@ with it, and how many — the exact sketch-intersection sizes that drive
 Each (key, column) pair is stored once and query keys are distinct within
 a sketch, so both count the same pairs, and the ``safe`` guarantee holds
 through either. These are plain objects: there is nothing to compile, and
-``warmup`` builds and loads the kernels and runs each shape once.
+``warmup`` builds and loads the kernels and runs each shape once. Both
+satisfy the `CandidateSource` protocol.
 """
 from __future__ import annotations
+
+from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -44,6 +47,30 @@ def window_rung(max_run: int, base: int = WINDOW_BASE) -> int:
     return w
 
 
+@runtime_checkable
+class CandidateSource(Protocol):
+    """Stage-1 candidate generation as exact intersection hit counts.
+
+    ``hit_counts`` takes the query tuple ``qa = (q_kh, q_val, q_mask,
+    q_cmin, q_cmax)`` of ``B`` rows (``B``, the reference's bucket
+    argument, may be passed too) and returns host ``f32 [B, C]`` counts:
+    ``hits[b, c]`` is the exact size of the stored-key intersection of
+    query ``b`` and column ``c`` (the sketch-join sample size m). Every
+    source gives the same counts — the ``safe`` filter reads them as
+    ground truth. ``kind`` names the source."""
+    kind: str
+
+    def hit_counts(self, qa, B: Optional[int] = None) -> np.ndarray: ...
+
+    def warmup(self, B: int) -> None: ...
+
+
+def _rows(qa, B: Optional[int]) -> None:
+    if B is not None and int(B) != qa[0].shape[0]:
+        raise ValueError(f"B={B} but the query tuple holds "
+                         f"{qa[0].shape[0]} rows")
+
+
 def _dummy_keys(B: int, n: int, device):
     """Empty query key planes (PAD patterns, zero masks)."""
     return (torch.full((B, n), PAD_KEY - 2**32, dtype=torch.int32,
@@ -69,13 +96,16 @@ class ScanSource:
     """The containment scan over every resident column: each shard of the
     index (an `IndexShard` or a `MeshShard`) probes its own block."""
 
+    kind = "scan"
+
     def __init__(self, shard):
         self.shard = PL.as_mesh_shard(shard)
 
-    def hit_counts(self, qa) -> np.ndarray:
+    def hit_counts(self, qa, B: Optional[int] = None) -> np.ndarray:
         """Host ``f32 [B, C]`` exact hit counts of the query tuple
         ``qa = (q_kh, q_val, q_mask, q_cmin, q_cmax)``, in global-id
         order."""
+        _rows(qa, B)
         rows = []
         for blk, dev in zip(self.shard.blocks, self.shard.mesh):
             with D.on(dev):
@@ -92,6 +122,8 @@ class InvertedSource:
     """The inverted key index as a candidate source: holds the `Postings`
     planes on the device and the window ``W`` their longest run needs."""
 
+    kind = "inverted"
+
     def __init__(self, postings: Postings, *, C: int, n: int):
         self.C = int(C)
         self.n = int(n)
@@ -106,7 +138,8 @@ class InvertedSource:
                                              self.cols, self.W)
         return K.postings_merge(cand, self.C)
 
-    def hit_counts(self, qa) -> np.ndarray:
+    def hit_counts(self, qa, B: Optional[int] = None) -> np.ndarray:
+        _rows(qa, B)
         cols, counts = self.merged(qa[0], qa[2])
         return dense_hit_counts(cols.cpu().numpy(), counts.cpu().numpy(),
                                 self.C)

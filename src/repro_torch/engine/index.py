@@ -292,15 +292,22 @@ def build_postings(key_hash: torch.Tensor, mask: torch.Tensor,
     return Postings(keys=out_keys, cols=out_cols, used=used)
 
 
-def place_shard(shard: IndexShard, mesh) -> MeshShard:
+def place_shard(shard, mesh) -> MeshShard:
     """Column-pad ``shard`` to a multiple of the mesh's shard count and
     place one contiguous block on each mesh device (DESIGN.md §10). Pad
     columns are fully masked — PAD keys, mask 0, rows 0, ``col_min`` and
     ``col_max`` 0 — so they never match and are never eligible; the padded
     count depends only on C and the shard count. Shared by the static path
-    (`shard_for_mesh`) and the per-segment placement of a live index."""
+    (`shard_for_mesh`) and the per-segment placement of a live index. A
+    `MeshShard` of as many shards as the mesh has devices is placed
+    already and comes back as it is; one of another count is gathered on
+    the mesh's first device and placed again."""
     mesh = tuple(torch.device(d) for d in mesh)
     ndev = len(mesh)
+    if isinstance(shard, MeshShard):
+        if len(shard.blocks) == ndev:
+            return shard
+        shard = shard.on(mesh[0])
     C = shard.num_columns
     pad = (-C) % ndev
     if pad:

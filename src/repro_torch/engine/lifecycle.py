@@ -31,7 +31,7 @@ device once built, maintained through writes and tombstones. The read side
 is `engine.serve.Server`, which serves a `LiveIndex` segment by segment
 and places each segment over its device mesh when `refresh` publishes it
 (`engine.index.place_shard`, DESIGN.md §10): the live index itself holds
-no sharding.
+no sharding. `LiveQueryServer` is the reference's deprecated alias of it.
 During the delta phase the s4 CI normalisation spans one segment's
 candidate list, so s4 results equal a static server's only after
 `compact` leaves one segment; s1 and s2 are exact throughout.
@@ -42,6 +42,7 @@ import dataclasses
 import json
 import os
 import threading
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +53,7 @@ from repro_torch.core.sketch import (PAD_KEY, Agg, CorrelationSketch,
                                      finalize_values, place_cols,
                                      stack_sketches)
 from repro_torch.engine import ingest
+from repro_torch.engine import serve as SV
 from repro_torch.engine.index import IndexShard, Postings, build_postings
 
 #: snapshot file names (under the directory passed to save/load)
@@ -460,3 +462,46 @@ class LiveIndex:
                 **{f: data[f"s{m['sid']}_{f}"] for f in _SEG_FIELDS})
                 for m in manifest["segments"]])
         return idx
+
+
+# ----------------------------------------------------------------------------
+# deprecated alias: the reference's segment-aware server
+# ----------------------------------------------------------------------------
+
+class LiveQueryServer(SV.Server):
+    """Deprecated alias of `repro_torch.engine.serve.Server` over a
+    `LiveIndex` under a legacy `repro_torch.engine.query.QueryConfig`,
+    with the reference's constructor (``mesh`` first), the positional
+    ``refresh`` of `query_batch`, the `live` property, and a `warmup` of
+    only the configured ``qcfg.prune``. The reference's ``cache=`` is not
+    taken: passing it raises TypeError."""
+
+    def __init__(self, mesh, live: LiveIndex, qcfg,
+                 buckets: Sequence[int] = (1, 8, 32), *,
+                 batch_rows: Optional[int] = None,
+                 device: D.DeviceLike = None):
+        warnings.warn(
+            "repro_torch.engine.lifecycle.LiveQueryServer is deprecated; use "
+            "repro_torch.engine.serve.Server (one facade for static and live "
+            "indexes, per-request semantics)",
+            DeprecationWarning, stacklevel=2)
+        super().__init__(live, qcfg, buckets=buckets, mesh=mesh,
+                         device=device, batch_rows=batch_rows)
+        self.qcfg = qcfg
+
+    @property
+    def live(self) -> LiveIndex:
+        return self._live
+
+    def query_batch(self, sketches: CorrelationSketch, refresh: bool = True,
+                    *, request=None):
+        # the reference's signature: ``refresh`` positional
+        return super().query_batch(sketches, request=request,
+                                   refresh=refresh)
+
+    def warmup(self, include_ladder: bool = True,
+               modes: Optional[Sequence[str]] = None) -> None:
+        """Warm ``modes`` (default: only the config's prune mode)."""
+        super().warmup(modes=modes if modes is not None
+                       else (self.request.prune,),
+                       include_ladder=include_ladder)

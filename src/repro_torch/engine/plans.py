@@ -33,10 +33,18 @@ Two-stage retrieval scores only candidates that can be eligible:
     inverted       postings window probe → merge → device select (on the
                    first shard's device, the probe is replicated) → stage 2,
                    one dispatch that also reports the survivor count
+
+`scan`, `probe` and `pruned` also take a single query (``[nq]`` arrays):
+it runs as a batch of one, so its result equals its row of any batch.
+`split_config` maps a legacy `repro_torch.engine.query.QueryConfig` onto a
+(`ShapePolicy`, `Request`) pair, and `make_scan_fn`, `make_probe_fn`,
+`make_pruned_fn` and `make_topm_fn` keep the reference's plan-builder
+signatures over these plans (the legacy facade's programs).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -48,6 +56,7 @@ from repro_torch.core import scoring as SC
 from repro_torch.core.bounds import hoeffding_eligibility_floor
 from repro_torch.engine.index import PAD_PATTERN, IndexShard, MeshShard
 from repro_torch.kernels import ops as K
+from repro_torch.launch import mesh as MS
 
 FAST_SCORERS = ("s1", "s2", "s4")
 ESTIMATORS = ("pearson", "spearman", "rin", "qn")
@@ -147,6 +156,34 @@ def _plan_combine(shape: ShapePolicy, ndev: int) -> bool:
         raise ValueError(f"ShapePolicy.mesh_shards={shape.mesh_shards} does "
                          f"not match the {ndev}-shard mesh")
     return shape.combine == "host"
+
+
+def split_config(qcfg) -> "tuple[ShapePolicy, Request]":
+    """Split a legacy `repro_torch.engine.query.QueryConfig` into a
+    (`ShapePolicy`, `Request`) pair; ``k_max`` is the legacy ``k``.
+
+    Keeps the reference's leniency: a scorer outside {s1, s2} scores as
+    s4, an estimator outside the four as pearson (a `Request` built
+    directly is still checked strictly by `request_operands`); an unknown
+    prune mode raises. ``intersect`` ("sortmerge" or "eqmatrix") and
+    ``kernels`` name the reference's XLA intersect and kernel backend: the
+    reference serves any other ``intersect`` through its eq-matrix branch,
+    and both give the same statistics, so the port accepts any value, as
+    the reference does, and drops both — its plans have one intersect, the
+    kernel of the tensors' device."""
+    if qcfg.prune not in PRUNE_MODES:
+        raise ValueError(f"unknown prune mode {qcfg.prune!r}: "
+                         f"use one of {PRUNE_MODES}")
+    shape = ShapePolicy(k_max=qcfg.k, score_chunk=qcfg.score_chunk,
+                        prune_m=qcfg.prune_m, prune_base=qcfg.prune_base)
+    req = Request(k=qcfg.k,
+                  estimator=(qcfg.estimator if qcfg.estimator in ESTIMATORS
+                             else "pearson"),
+                  scorer=(qcfg.scorer if qcfg.scorer in ("s1", "s2")
+                          else "s4"),
+                  prune=qcfg.prune, alpha=qcfg.alpha,
+                  min_sample=qcfg.min_sample)
+    return shape, req
 
 
 def request_operands(req: Request) -> np.ndarray:
@@ -274,6 +311,20 @@ def _unpack(ops: np.ndarray):
             float(ops[3]))
 
 
+def _single(plan):
+    """Let ``plan`` (query arrays first) take one query: ``[nq]`` arrays
+    run as a batch of one and every output loses its batch axis, so a
+    single query's result is its row of any batch."""
+    @functools.wraps(plan)
+    def run(q_kh, q_val, q_mask, q_cmin, q_cmax, *rest):
+        qa = (q_kh, q_val, q_mask, q_cmin, q_cmax)
+        if q_kh.dim() != 1:
+            return plan(*qa, *rest)
+        out = plan(*(a[None] for a in qa), *rest)
+        return tuple(o if o.dim() == 0 else o[0] for o in out)
+    return run
+
+
 # ----------------------------------------------------------------------------
 # the mesh: per-shard stats → cross-shard s4 bounds → local top-k → combine
 # ----------------------------------------------------------------------------
@@ -363,12 +414,14 @@ def _rank(stats, gids, scorer: str, floor: float, k: int, host: bool):
     return tuple(torch.from_numpy(x) for x in combine_local_topk(*cat, k))
 
 
+@_single
 def scan(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, shape: ShapePolicy,
          ops: np.ndarray):
-    """The full scan plan: query arrays ``[B, nq]`` against ``shard`` (an
-    `IndexShard` or a `MeshShard`) under the `request_operands` vector
-    ``ops`` → top-``k_max`` (scores, ids, r, m), each ``[B, min(k_max,
-    C)]``: every shard scans its own block."""
+    """The full scan plan: query arrays ``[B, nq]`` (or one query's
+    ``[nq]``) against ``shard`` (an `IndexShard` or a `MeshShard`) under
+    the `request_operands` vector ``ops`` → top-``k_max`` (scores, ids, r,
+    m), each ``[B, min(k_max, C)]`` (``[min(k_max, C)]``): every shard
+    scans its own block."""
     ms = as_mesh_shard(shard)
     est, scorer, alpha, floor = _unpack(ops)
     qa = (q_kh, q_val, q_mask, q_cmin, q_cmax)
@@ -389,10 +442,13 @@ def scan(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, shape: ShapePolicy,
 
 def probe(q_kh, q_mask, shard: IndexShard):
     """Stage-1 scan: the exact sketch-intersection size of every query row
-    with every candidate, ``[B, C]`` — by key distinctness the sketch-join
-    sample size m the scan would compute, which is what makes
-    ``prune="safe"`` lose no top-k column. One containment launch over all
-    C: nothing ``[B, chunk, nq]``-sized is materialised."""
+    with every candidate, ``[B, C]`` (one query ``[nq]``: ``[C]``) — by
+    key distinctness the sketch-join sample size m the scan would compute,
+    which is what makes ``prune="safe"`` lose no top-k column. One
+    containment launch over all C: nothing ``[B, chunk, nq]``-sized is
+    materialised."""
+    if q_kh.dim() == 1:
+        return K.containment_hits(q_kh, q_mask, shard.key_hash, shard.mask)
     return K.containment_hits_batched(q_kh, q_mask, shard.key_hash,
                                       shard.mask)
 
@@ -446,12 +502,13 @@ def _owned_stats(qa, ms: MeshShard, surv, valid, score_chunk: int,
     return stats, gids
 
 
+@_single
 def pruned(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, surv, valid,
            shape: ShapePolicy, ops: np.ndarray):
     """Gather + score + rank of ``M`` survivor columns (a rung of the
     ``prune_base · 2^i`` ladder, ``M ≥ k_max``; the filter ran on the
     host), each scored on the shard that owns it → top-``k_max`` (scores,
-    index ids, r, m)."""
+    index ids, r, m), for a batch or one query."""
     if shape.k_max > surv.shape[0]:
         raise ValueError(f"rung {surv.shape[0]} is below k_max={shape.k_max}")
     ms = as_mesh_shard(shard)
@@ -575,3 +632,119 @@ def prune_rung(n_survivors: int, base: int, C: int,
         r *= 2
     r += (-r) % int(ndev)
     return None if r >= C else r
+
+
+# ----------------------------------------------------------------------------
+# plan builders: the reference's signatures over the plans above
+# ----------------------------------------------------------------------------
+
+def _builder_mesh(mesh, C_total: int, shape: ShapePolicy, with_prep: bool,
+                  emit_tables: bool = False):
+    """Check a plan builder's arguments → the mesh as a device tuple.
+    ``with_prep`` and ``emit_tables`` name the reference's XLA probe and
+    sort tables (`PreppedShard`, the bit tables stage 2 reuses): the
+    port's kernels need neither, so it builds neither and refuses them."""
+    if with_prep or emit_tables:
+        raise ValueError("with_prep / emit_tables name the reference's XLA "
+                         "prep and probe tables, which the port does not "
+                         "build: its kernels take the index planes as they "
+                         "are")
+    mesh = MS.as_mesh(mesh)
+    if C_total % len(mesh):
+        raise ValueError(f"C_total={C_total} does not split over "
+                         f"{len(mesh)} shards")
+    _plan_combine(shape, len(mesh))
+    return mesh
+
+
+def _builder_call(q_kh, batch: Optional[int], shard, mesh, C_total: int,
+                  n: int) -> MeshShard:
+    """Check a built plan's call against what it was built for: one query
+    (``batch=None``: ``[nq]`` arrays) or ``batch`` rows, and an index of
+    ``C_total`` columns of sketch size ``n`` in as many shards as the
+    mesh has devices."""
+    if batch is None and q_kh.dim() != 1:
+        raise ValueError(f"a single-query plan takes [nq] query arrays, "
+                         f"not {tuple(q_kh.shape)}")
+    if batch is not None and (q_kh.dim() != 2 or q_kh.shape[0] != batch):
+        raise ValueError(f"a batch-{batch} plan takes [{batch}, nq] query "
+                         f"arrays, not {tuple(q_kh.shape)}")
+    ms = as_mesh_shard(shard)
+    if (ms.num_columns, len(ms.mesh), ms.blocks[0].key_hash.shape[1]) != (
+            C_total, len(mesh), n):
+        raise ValueError(
+            f"the plan was built for {C_total} columns of size {n} over "
+            f"{len(mesh)} shards, not {ms.num_columns} of size "
+            f"{ms.blocks[0].key_hash.shape[1]} over {len(ms.mesh)}")
+    return ms
+
+
+def make_scan_fn(mesh, C_total: int, n: int, shape: ShapePolicy,
+                 batch: Optional[int] = None, with_prep: bool = False):
+    """The full-scan plan (`scan`) for an index of ``C_total`` columns of
+    sketch size ``n`` over ``mesh``: ``fn(q_kh, q_val, q_mask, q_cmin,
+    q_cmax, shard, ops)`` → top-``k_max`` (scores, ids, r, m). ``batch=
+    None`` takes one query (``[k_max]`` results), ``batch=B`` a ``[B, nq]``
+    batch. A ``"host"`` combine returns the merged top-k (the reference
+    returns the per-shard strips that `combine_local_topk` merges into
+    it). ``with_prep`` raises (`_builder_mesh`)."""
+    mesh = _builder_mesh(mesh, C_total, shape, with_prep)
+
+    def fn(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, ops):
+        ms = _builder_call(q_kh, batch, shard, mesh, C_total, n)
+        return scan(q_kh, q_val, q_mask, q_cmin, q_cmax, ms, shape, ops)
+    return fn
+
+
+def make_probe_fn(mesh, C_total: int, n: int, shape: ShapePolicy,
+                  batch: Optional[int] = None, with_prep: bool = False,
+                  emit_tables: bool = False):
+    """The stage-1 plan (`probe` on every shard): ``fn(q_kh, q_val, q_mask,
+    q_cmin, q_cmax, shard)`` → exact hit counts ``[B, C_total]`` (one
+    query: ``[C_total]``) on the first shard's device, in global-id order.
+    Request-independent: it takes no ``ops``. ``with_prep`` and
+    ``emit_tables`` raise (`_builder_mesh`)."""
+    mesh = _builder_mesh(mesh, C_total, shape, with_prep, emit_tables)
+
+    def fn(q_kh, q_val, q_mask, q_cmin, q_cmax, shard):
+        ms = _builder_call(q_kh, batch, shard, mesh, C_total, n)
+        hits = []
+        for blk, dev in zip(ms.blocks, ms.mesh):
+            with D.on(dev):
+                hits.append(probe(q_kh.to(dev), q_mask.to(dev), blk))
+        return torch.cat([h.to(ms.mesh[0]) for h in hits], -1)
+    return fn
+
+
+def make_pruned_fn(mesh, C_total: int, n: int, shape: ShapePolicy, M: int,
+                   batch: Optional[int] = None, with_prep: bool = False):
+    """The stage-2 plan (`pruned`) at survivor rung ``M`` (≥ ``k_max``):
+    ``fn(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, surv, valid, ops)``,
+    ``surv [M]`` global survivor ids and ``valid [M]`` the real ones →
+    top-``k_max`` (scores, index ids, r, m). ``with_prep`` raises."""
+    mesh = _builder_mesh(mesh, C_total, shape, with_prep)
+    if shape.k_max > M:
+        raise ValueError(f"rung {M} is below k_max={shape.k_max}")
+
+    def fn(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, surv, valid, ops):
+        ms = _builder_call(q_kh, batch, shard, mesh, C_total, n)
+        surv, valid = torch.as_tensor(surv), torch.as_tensor(valid)
+        if surv.shape != (M,):
+            raise ValueError(f"the plan scores a rung of {M}, not "
+                             f"{tuple(surv.shape)}")
+        return pruned(q_kh, q_val, q_mask, q_cmin, q_cmax, ms, surv,
+                      valid.to(torch.bool), shape, ops)
+    return fn
+
+
+def make_topm_fn(mesh, C_total: int, n: int, shape: ShapePolicy, batch: int,
+                 with_prep: bool = False):
+    """The ``prune="topm"`` plan (`topm`) for ``[batch, nq]`` query arrays:
+    ``fn(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, ops)`` → top-
+    ``k_max`` (scores, index ids, r, m). ``with_prep`` raises."""
+    mesh = _builder_mesh(mesh, C_total, shape, with_prep)
+
+    def fn(q_kh, q_val, q_mask, q_cmin, q_cmax, shard, ops):
+        ms = _builder_call(q_kh, int(batch), shard, mesh, C_total, n)
+        return topm(q_kh, q_val, q_mask, q_cmin, q_cmax, ms, shape, ops)
+    return fn

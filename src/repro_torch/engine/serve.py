@@ -38,6 +38,9 @@ answers as a one-device server does. A segment executor does:
 
 Request semantics (k, estimator, scorer, prune mode, α, floor) are per
 call; results come back as numpy ``[NQ, k]`` arrays (scores, ids, r, m).
+`QueryServer` (and `repro_torch.engine.lifecycle.LiveQueryServer`) keep
+the reference's deprecated servers: a legacy `QueryConfig`, its output
+conventions and its warmup.
 During a live index's delta phase the s4 CI normalisation spans one
 segment's candidate list; s1 and s2 equal a static server's throughout.
 """
@@ -48,6 +51,7 @@ import dataclasses
 import functools
 import threading
 import time
+import warnings
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
@@ -60,10 +64,10 @@ from repro_torch.core import hashing
 from repro_torch.core.sketch import (PAD_KEY, Agg, CorrelationSketch,
                                      build_sketch, merge)
 from repro_torch.engine import candidates as CD
-from repro_torch.engine import lifecycle as LC
 from repro_torch.engine import plans as PL
+from repro_torch.engine import query as Q
 from repro_torch.engine.index import (IndexShard, KeyMinima, Postings,
-                                      build_postings, key_minima,
+                                      SketchIndex, build_postings, key_minima,
                                       place_shard, query_arrays)
 from repro_torch.kernels import ops as K
 from repro_torch.launch import mesh as MS
@@ -211,15 +215,18 @@ class _SegmentExec:
     ``candidates="auto"`` resolves against it. ``postings`` (a live
     segment's, maintained by its writes and tombstones) back the inverted
     source instead of a fresh build; the inverted probe runs on
-    ``mesh[0]`` over global ids."""
+    ``mesh[0]`` over global ids. ``batch_rows`` (default `BLOCK_ROWS`) is
+    the block-row budget of `chunk_for`."""
 
     def __init__(self, shard: IndexShard, n: int, shape: PL.ShapePolicy, *,
                  request: PL.Request, buckets: Tuple[int, ...],
-                 mesh: MS.Mesh, postings: Optional[Postings] = None):
+                 mesh: MS.Mesh, postings: Optional[Postings] = None,
+                 batch_rows: Optional[int] = None):
         self.mesh = tuple(mesh)
         self.device = self.mesh[0]
         self.shard = place_shard(shard, self.mesh)
         self.n = int(n)
+        self.batch_rows = int(batch_rows or BLOCK_ROWS)
         self.C = self.shard.num_columns
         shape = PL.resolve_shape(shape, self.mesh, num_columns=self.C)
         if shape.k_max > self.C:  # a corpus smaller than k_max still serves
@@ -253,9 +260,9 @@ class _SegmentExec:
 
     # -- shape policy per bucket ---------------------------------------------
     def chunk_for(self, B: int) -> int:
-        """Bucket-B score_chunk: shrunk toward `BLOCK_ROWS` (floored at 64,
-        never raised above the configured value)."""
-        return min(self.shape.score_chunk, max(64, BLOCK_ROWS // B))
+        """Bucket-B score_chunk: shrunk toward ``batch_rows`` rows (floored
+        at 64, never raised above the configured value)."""
+        return min(self.shape.score_chunk, max(64, self.batch_rows // B))
 
     def shape_for(self, B: int) -> PL.ShapePolicy:
         chunk = self.chunk_for(B)
@@ -384,15 +391,17 @@ class _SegmentExec:
 
     def _scan(self, qa, B: int, ops):
         """The full scan of a bucket-B batch (direct, or the fallback of a
-        survivor set no rung below C holds)."""
+        survivor set no rung below C holds), as the plan gives it: ids of
+        −inf rows are left as they are."""
         t0 = time.perf_counter()
         out = _host(PL.scan(*qa, self.shard, self.shape_for(B), ops))
         self._stage("scan", t0)
-        return _drop_ineligible(*out)
+        return out
 
     def _serve(self, qa, nq: int, B: int, req: PL.Request, ops):
         """One padded bucket-B batch under ``req``'s prune mode; ``nq`` real
-        rows. Results on the host."""
+        rows. Results on the host; id −1 on −inf rows, except on the direct
+        scan, which keeps the plan's ids (the reference's convention)."""
         inv = self.candidates == "inverted"
         if req.prune == "topm":
             if inv:
@@ -423,7 +432,7 @@ class _SegmentExec:
         rung = self._rung(len(surv))
         self._stage("select", t0)
         if rung is None:
-            return self._scan(qa, B, ops)
+            return _drop_ineligible(*self._scan(qa, B, ops))
         t0 = time.perf_counter()
         idx = np.zeros((rung,), np.int32)
         idx[:len(surv)] = surv
@@ -445,7 +454,7 @@ class _SegmentExec:
         union unchanged."""
         rungs = self.prune_rungs()
         if not rungs:
-            return self._scan(qa, B, ops)
+            return _drop_ineligible(*self._scan(qa, B, ops))
         src = self.source()
         M = self._fused_rung if self._fused_rung in rungs else rungs[0]
         for _ in range(2):
@@ -461,7 +470,7 @@ class _SegmentExec:
             if need is None:
                 break               # the union outgrew the ladder: scan
             self._fused_rung = M = need
-        return self._scan(qa, B, ops)
+        return _drop_ineligible(*self._scan(qa, B, ops))
 
     def _pad(self, qa, nq: int, B: int):
         """Pad a ≤B slice of query arrays to the bucket with copies of its
@@ -491,8 +500,8 @@ class _SegmentExec:
     def query_batch(self, sketches: CorrelationSketch, req: PL.Request):
         """Serve query sketches (leading [NQ] axis) under ``req`` →
         ``[NQ, min(req.k, k_max)]`` numpy (scores, shard-local ids, r, m),
-        each row score descending then id ascending, id −1 where the score
-        is −inf."""
+        each row score descending then id ascending; id −1 where the score
+        is −inf, except on the direct scan (`_serve`)."""
         ops = PL.request_operands(req)
         qa = tuple(a.to(self.device) for a in query_arrays(sketches))
         nq = int(qa[0].shape[0])
@@ -618,15 +627,20 @@ class _SegEntry:
 
 class Server:
     """Serves join-correlation queries against a `SketchIndex` (one
-    segment) or a `repro_torch.engine.lifecycle.LiveIndex` (one executor
-    per segment, `refresh` picking up its mutations).
+    segment), an already placed `IndexShard` or `MeshShard` (one segment;
+    ``index`` gives its catalog, else `names` is empty) or a
+    `repro_torch.engine.lifecycle.LiveIndex` (one executor per segment,
+    `refresh` picking up its mutations).
 
     ``mesh`` (a sequence of devices, `repro_torch.launch.mesh`) shards
     every segment's columns over its devices; ``device`` means a one-device
     mesh and defaults to the CUDA card (raising when there is none).
     ``policy`` is the `ShapePolicy` (its mesh fields resolved against the
-    mesh, `plans.resolve_shape`), ``request`` the default `Request` —
-    every query method takes a per-call ``request=`` override.
+    mesh, `plans.resolve_shape`) or a legacy `repro_torch.engine.query.
+    QueryConfig`, split by `plans.split_config` (its request is the
+    default unless ``request`` is given); ``request`` the default
+    `Request` — every query method takes a per-call ``request=`` override.
+    ``batch_rows`` is each executor's block-row budget (`BLOCK_ROWS`).
     ``candidates="auto"`` resolves per segment against its column count.
     Results combine across segments deterministically (score descending,
     global id ascending, id −1 on −inf rows) into ``[NQ, request.k]``
@@ -635,14 +649,21 @@ class Server:
     ``source()``, ``dispatch_log``, …) read through the facade.
     """
 
-    def __init__(self, source, policy: Optional[PL.ShapePolicy] = None, *,
+    def __init__(self, source, policy=None, *,
                  request: Optional[PL.Request] = None,
                  buckets: Sequence[int] = (1, 8, 32),
-                 device: D.DeviceLike = None, mesh=None):
+                 device: D.DeviceLike = None, mesh=None,
+                 batch_rows: Optional[int] = None,
+                 index: Optional[SketchIndex] = None):
+        from repro_torch.engine import lifecycle as LC
         self.mesh = MS.as_mesh(mesh, device)
         self.device = self.mesh[0]
+        if isinstance(policy, Q.QueryConfig):
+            policy, req0 = PL.split_config(policy)
+            request = request if request is not None else req0
         self.shape = PL.resolve_shape(
             policy if policy is not None else PL.ShapePolicy(), self.mesh)
+        self._batch_rows = batch_rows
         self.request = request if request is not None else PL.Request()
         PL.request_operands(self.request)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -677,11 +698,17 @@ class Server:
             self.refresh()
         else:
             self._live = None
-            self.n = source.n
-            ex = self._make_exec(source.shard)
-            self._view = (_SegEntry(sid=0, version=0, base=0,
-                                    used=len(source.names), exec=ex),)
-            self.names = list(source.names)
+            if isinstance(source, SketchIndex):
+                index = index if index is not None else source
+                shard = source.shard
+            else:
+                shard = source    # an IndexShard or MeshShard, placed
+            self.n = int(PL.as_mesh_shard(shard).blocks[0].key_hash.shape[1])
+            ex = self._make_exec(shard)
+            used = len(index.names) if index is not None else ex.C
+            self._view = (_SegEntry(sid=0, version=0, base=0, used=used,
+                                    exec=ex),)
+            self.names = list(index.names) if index is not None else []
 
     def __getattr__(self, name):
         # the single executor's attributes, for a static index
@@ -707,7 +734,7 @@ class Server:
                    postings: Optional[Postings] = None) -> _SegmentExec:
         ex = _SegmentExec(shard, self.n, self.shape, request=self.request,
                           buckets=self.buckets, mesh=self.mesh,
-                          postings=postings)
+                          postings=postings, batch_rows=self._batch_rows)
         ex._bucket_cost = dict(self._cap_costs.get(ex.C, {}))
         ex.fused_safe = self._fused_safe
         return ex
@@ -785,6 +812,7 @@ class Server:
         costs. ``include_ladder`` (live index) also warms empty segments of
         the capacities the next mutations will bring: the delta capacity
         and the rung a `compact` would land on."""
+        from repro_torch.engine import lifecycle as LC
         warmed = set()
         for e in self._view:
             e.exec.warmup(modes)
@@ -969,3 +997,89 @@ class Server:
                     segments=len(view), stages=_stage_table(stage_s, stage_n),
                     device_dispatches=sum(stage_n.get(name, 0)
                                           for name in _DEVICE_STAGES))
+
+
+# ----------------------------------------------------------------------------
+# deprecated alias: the reference's single-index server
+# ----------------------------------------------------------------------------
+
+class QueryServer(Server):
+    """Deprecated alias of `Server` for a static, already placed
+    `IndexShard` or `MeshShard` under a legacy `repro_torch.engine.query.
+    QueryConfig`, with the reference's conventions: `query_batch` returns
+    the executor's raw output (no cross-segment combine; on the full scan
+    the ids of −inf rows are the plan's, not −1), `warmup` warms only
+    ``qcfg.prune``, and ``qcfg_for`` / ``query_fn`` / ``stage1_fn`` /
+    ``stage2_fn`` / ``topm_fn`` give the per-bucket config and plans.
+    ``mesh`` is a sequence of devices (None: the one-device mesh of
+    ``device``, the CUDA card by default); ``index`` gives the catalog.
+    The reference's ``cache=`` and ``prep=`` name its compiled-program
+    cache and XLA sort tables, which the port does not have: the
+    constructor does not take them, so passing one raises TypeError."""
+
+    def __init__(self, mesh, shard, qcfg, buckets: Sequence[int] = (1, 8, 32),
+                 *, index: Optional[SketchIndex] = None,
+                 batch_rows: Optional[int] = None,
+                 device: D.DeviceLike = None):
+        warnings.warn(
+            "repro_torch.engine.serve.QueryServer is deprecated; use "
+            "repro_torch.engine.serve.Server (one facade for static and "
+            "live indexes, per-request semantics)",
+            DeprecationWarning, stacklevel=2)
+        super().__init__(shard, qcfg, buckets=buckets, mesh=mesh,
+                         device=device, batch_rows=batch_rows, index=index)
+        self.qcfg = qcfg
+
+    @property
+    def _exec(self) -> _SegmentExec:
+        return self._view[0].exec
+
+    def qcfg_for(self, B: int):
+        """The bucket-B config: ``score_chunk`` as `chunk_for` sets it."""
+        chunk = self._exec.chunk_for(B)
+        if chunk == self.qcfg.score_chunk:
+            return self.qcfg
+        return dataclasses.replace(self.qcfg, score_chunk=chunk)
+
+    def query_fn(self, B: int):
+        """The bucket-B scan plan (`plans.make_scan_fn`)."""
+        return PL.make_scan_fn(self.mesh, self.C, self.n,
+                               self._exec.shape_for(B), batch=B)
+
+    def stage1_fn(self, B: int, emit_tables: bool = False):
+        """The bucket-B stage-1 plan (`plans.make_probe_fn`)."""
+        return PL.make_probe_fn(self.mesh, self.C, self.n,
+                                self._exec.shape_for(B), batch=B,
+                                emit_tables=emit_tables)
+
+    def stage2_fn(self, B: int, M: int):
+        """The bucket-B stage-2 plan at rung ``M`` (`plans.make_pruned_fn`)."""
+        return PL.make_pruned_fn(self.mesh, self.C, self.n,
+                                 self._exec.shape_for(B), M, batch=B)
+
+    def topm_fn(self, B: int):
+        """The bucket-B ``topm`` plan (`plans.make_topm_fn`)."""
+        return PL.make_topm_fn(self.mesh, self.C, self.n,
+                               self._exec.shape_for(B), batch=B)
+
+    def warmup(self, modes: Optional[Sequence[str]] = None) -> None:
+        """Warm ``modes`` (default: only the config's prune mode)."""
+        super().warmup(modes=modes if modes is not None
+                       else (self.request.prune,))
+
+    def query_batch(self, sketches: CorrelationSketch, *,
+                    request: Optional[PL.Request] = None):
+        """The executor's raw ``[NQ, min(k, k_max)]`` numpy results (ids of
+        −inf rows as the full scan gives them; −1 on the pruned paths)."""
+        return self._exec.query_batch(
+            sketches, request if request is not None else self.request)
+
+    def query_columns(self, keys_list, values_list, *, chunk: int = 8192,
+                      request: Optional[PL.Request] = None):
+        sks = build_query_sketches(keys_list, values_list, n=self.n,
+                                   chunk=chunk, device=self.device)
+        return self.query_batch(sks, request=request)
+
+    def stage1_hits(self, sketches: CorrelationSketch) -> np.ndarray:
+        """Exact hit counts ``[NQ, C]`` over every (padded) column."""
+        return self._exec._hits(sketches)

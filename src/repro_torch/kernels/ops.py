@@ -5,8 +5,16 @@ PyTorch twin (`repro_torch.kernels.ref`), CUDA tensors to the hand-written
 Hopper kernel, which launches or raises — there is no fallback from a
 failed build or launch to the twin. Each CUDA wrapper counts its launches
 (`LAUNCH_COUNTERS`), so a run can show its path went through the kernels.
+
+`KernelConfig` and the single-query `sketch_join_moments` and
+`containment_hits` keep the reference's legacy signatures: the reference's
+Pallas kernels are single-query, its batched forms a vmap of them; here a
+single query is one launch of the batched kernel at B = 1.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Literal
 
 import torch
 
@@ -31,6 +39,33 @@ LAUNCH_COUNTERS = {
     "hash_build": _hb.hash_build,
     "flash_attention": _fa.flash_attention,
 }
+
+
+Backend = Literal["xla", "pallas", "interpret"]
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """The reference's kernel backend choice, kept so that a legacy
+    `repro_torch.engine.query.QueryConfig` builds. In the port it picks no
+    path: a CUDA tensor always runs the hand-written kernel and a CPU
+    tensor its plain twin, whatever ``backend`` says — a backend that could
+    send card data to the twin would hide the kernel."""
+    backend: Backend = "xla"
+
+    @property
+    def interpret(self) -> bool:
+        return self.backend == "interpret"
+
+    @property
+    def use_pallas(self) -> bool:
+        return self.backend in ("pallas", "interpret")
+
+
+def default_backend() -> Backend:
+    """The reference's default: "pallas" where the accelerator is present
+    (here a CUDA card), else "xla". Informational only (`KernelConfig`)."""
+    return "pallas" if torch.cuda.is_available() else "xla"
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -71,6 +106,17 @@ def sketch_join_moments_batched(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
                 with_aligned=with_aligned)
 
 
+def sketch_join_moments(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
+                        cfg: KernelConfig = KernelConfig()):
+    """Single-query sketch join: ``q_* [nq]`` against ``c_* [C, n]`` →
+    (mom [C, 6], aligned [C, nq], hit [C, nq]) — the batched kernel (or
+    twin) at B = 1, so it equals that query's row of a batch. ``cfg`` picks
+    nothing (`KernelConfig`)."""
+    mom, aligned, hit = sketch_join_moments_batched(
+        q_kh[None], q_val[None], q_mask[None], c_kh, c_val, c_mask)
+    return mom[0], aligned[0], hit[0]
+
+
 def rank_moments(a, b, mask, kind: str = "spearman"):
     """Fused masked rank transform + moments: a, b, mask f32[..., n] →
     f32[..., 6] (``kind='rin'``: rankit-transformed ranks)."""
@@ -105,6 +151,14 @@ def containment_hits_batched(q_kh, q_mask, c_kh, c_mask):
     impl = (_ct.containment_hits_batched if _on_cuda(q_kh)
             else _ref.containment_hits_batched)
     return impl(q_kh, q_mask, c_kh, c_mask)
+
+
+def containment_hits(q_kh, q_mask, c_kh, c_mask,
+                     cfg: KernelConfig = KernelConfig()):
+    """Single-query stage-1 counts: ``q_* [nq]`` against ``c_* [C, n]`` →
+    hits f32[C] — the batched kernel (or twin) at B = 1. ``cfg`` picks
+    nothing (`KernelConfig`)."""
+    return containment_hits_batched(q_kh[None], q_mask[None], c_kh, c_mask)[0]
 
 
 def postings_merge(cand, C: int):

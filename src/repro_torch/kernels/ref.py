@@ -68,6 +68,14 @@ def sketch_join_moments_batched(q_kh, q_val, q_mask, c_kh, c_val, c_mask,
 
 
 
+def sketch_join_moments(q_kh, q_val, q_mask, c_kh, c_val, c_mask):
+    """Single-query twin: ``q_* [nq]`` against ``c_* [C, n]`` → (mom
+    [C, 6], aligned [C, nq], hit [C, nq]), the batched twin's row."""
+    mom, aligned, hit = sketch_join_moments_batched(
+        q_kh[None], q_val[None], q_mask[None], c_kh, c_val, c_mask)
+    return mom[0], aligned[0], hit[0]
+
+
 # ----------------------------------------------------------------------------
 # containment: exact key-intersection counts (stage 1)
 # ----------------------------------------------------------------------------
@@ -104,6 +112,13 @@ def containment_hits_batched(q_kh, q_mask, c_kh, c_mask):
         cnt = torch.where(qv, cnt, 0).reshape(-1, B, nq).sum(-1)
         out[s:s + step] = cnt.to(torch.float32)
     return out.T.contiguous()
+
+
+def containment_hits(q_kh, q_mask, c_kh, c_mask):
+    """Single-query twin: ``q_* [nq]`` against ``c_* [C, n]`` → hits
+    f32[C], the batched twin's row."""
+    return containment_hits_batched(q_kh[None], q_mask[None], c_kh, c_mask)[0]
+
 
 def pearson_from_moments(moments):
     """Pearson r per candidate from the 6 accumulated moments."""

@@ -97,10 +97,9 @@ def main(argv=None) -> None:
         qsk = build_sketch(hashing.keys_tensor(qt.keys, mesh[0]),
                            torch.from_numpy(qt.values).to(mesh[0]),
                            n=args.sketch_size)
-        qa = tuple(a[None] for a in IX.query_arrays(qsk))
         t0 = time.time()
-        s, g, r, m = (x[0].cpu().numpy()
-                      for x in PL.scan(*qa, shard, shape, ops))
+        s, g, r, m = (x.cpu().numpy() for x in PL.scan(
+            *IX.query_arrays(qsk), shard, shape, ops))
         lat.append((time.time() - t0) * 1000)
         if i == 0:
             print("first query (incl. compile): "

@@ -17,14 +17,20 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 43, mods
+assert len(mods) >= 57, mods
 for new in ("core.containment", "engine.candidates", "kernels.containment",
             "kernels.postings", "engine.lifecycle", "kernels.hash_build",
             "core.estimators", "core.join", "core.ranking",
             "engine.scheduler", "quickstart", "configs", "configs.base",
             "configs.registry", "models", "models.params", "models.layers",
             "models.transformer", "kernels.flash_attention", "launch",
-            "launch.mesh", "launch.serve", "serve_queries"):
+            "launch.mesh", "launch.serve", "serve_queries", "engine.query",
+            "configs.shapes", "train_augmented", "configs.grok1_314b",
+            "configs.hymba_1_5b", "configs.llama4_maverick_400b",
+            "configs.llava_next_mistral_7b", "configs.phi3_mini_3_8b",
+            "configs.qwen15_0_5b", "configs.rwkv6_3b",
+            "configs.starcoder2_15b", "configs.tinyllama_1_1b",
+            "configs.whisper_small"):
     assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]

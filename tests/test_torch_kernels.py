@@ -301,6 +301,44 @@ def test_ops_route_cpu_tensors_to_twins(rng):
     assert ops.launches() == dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
 
 
+@pytest.mark.parametrize("nq,n,C", [(64, 64, 8), (100, 96, 13)])
+def test_single_query_twins_match_reference(rng, jx, nq, n, C):
+    """The single-query entries (`ops.sketch_join_moments`,
+    `ops.containment_hits`, the reference's Pallas kernels' own form) on
+    CPU tensors: the twin at B = 1, equal to the reference's single-query
+    oracle at 1e-5 (hits exactly), to the batched twin's row bit for bit,
+    and launching nothing. `KernelConfig` picks no path."""
+    qk, qv, qm, ck, cv, cm = _join_inputs(rng, 3, nq, n, C)
+    bq, bv, bm, tk, tv, tm = _torch_join_args(qk, qv, qm, ck, cv, cm)
+    ops.reset_launches()
+    batch = ref.sketch_join_moments_batched(bq, bv, bm, tk, tv, tm)
+    hits_b = ref.containment_hits_batched(bq, bm, tk, tm)
+    for row in range(3):
+        for cfg in (ops.KernelConfig(), ops.KernelConfig("pallas"),
+                    ops.KernelConfig("interpret")):
+            got = ops.sketch_join_moments(bq[row], bv[row], bm[row], tk, tv,
+                                          tm, cfg)
+            for g, w in zip(got, batch):
+                torch.testing.assert_close(g, w[row], rtol=0, atol=0)
+            torch.testing.assert_close(
+                ops.containment_hits(bq[row], bm[row], tk, tm, cfg),
+                hits_b[row], rtol=0, atol=0)
+        want = jx.ref.sketch_join_moments(*[jx.jnp.asarray(x) for x in (
+            qk[row], qv[row], qm[row], ck, cv, cm)])
+        for g, w in zip(ref.sketch_join_moments(bq[row], bv[row], bm[row], tk,
+                                                tv, tm), want):
+            _close(g, w, 1e-5)
+        np.testing.assert_array_equal(
+            ref.containment_hits(bq[row], bm[row], tk, tm).numpy(),
+            np.asarray(jx.ref.containment_hits(*[jx.jnp.asarray(x) for x in (
+                qk[row], qm[row], ck, cm)])))
+    assert batch[2][0].sum() > 0   # the planted overlap matched
+    assert ops.launches() == dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
+    assert [ops.KernelConfig(b).use_pallas for b in ("xla", "pallas", "interpret")] \
+        == [False, True, True]
+    assert ops.default_backend() in ("xla", "pallas")
+
+
 def test_cuda_wrappers_refuse_cpu_tensors(rng):
     """A wrapper never falls back: given CPU tensors it raises."""
     args = _torch_join_args(*_join_inputs(rng, 1, 16, 16, 4))
@@ -553,6 +591,44 @@ def _containment_inputs(rng, B, nq, n, C, universe):
     qm = (rng.random((B, nq)) < 0.8).astype(np.float32)
     cm = (rng.random((C, n)) < 0.8).astype(np.float32)
     return t(qk.view(np.int32)), t(qm), t(ck.view(np.int32)), t(cm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,n,C", [(64, 64, 8), (256, 256, 512), (100, 96, 13)])
+def test_cuda_single_query_sketch_join_matches_twin(rng, cuda, nq, n, C):
+    """`ops.sketch_join_moments` on a ``[nq]`` query: one launch of the
+    kernel at B = 1, within 1e-5 of the single-query twin, and bit for bit
+    that query's row of a batched launch."""
+    args = _torch_join_args(*_join_inputs(rng, 4, nq, n, C), device=cuda)
+    batch = SJ.sketch_join_moments_batched(*args)
+    for row in range(4):
+        one = [a[row] for a in args[:3]] + list(args[3:])
+        before = SJ.sketch_join_moments_batched.launches
+        got = ops.sketch_join_moments(*one)
+        torch.cuda.synchronize()
+        assert SJ.sketch_join_moments_batched.launches == before + 1
+        for g, w, b in zip(got, ref.sketch_join_moments(*one), batch):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(g, b[row], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,n,C,universe", [(64, 64, 8, 300),
+                                             (256, 256, 4096, 1 << 20)])
+def test_cuda_single_query_containment_matches_twin(rng, cuda, nq, n, C, universe):
+    """`ops.containment_hits` on a ``[nq]`` query: one launch at B = 1,
+    exactly the single-query twin and that query's row of a batch."""
+    args = [x.to(cuda) for x in _containment_inputs(rng, 3, nq, n, C, universe)]
+    batch = CT.containment_hits_batched(*args)
+    for row in range(3):
+        one = (args[0][row], args[1][row], args[2], args[3])
+        before = CT.containment_hits_batched.launches
+        got = ops.containment_hits(*one)
+        torch.cuda.synchronize()
+        assert CT.containment_hits_batched.launches == before + 1
+        torch.testing.assert_close(got, ref.containment_hits(*one), rtol=0, atol=0)
+        torch.testing.assert_close(got, batch[row], rtol=0, atol=0)
+    assert batch.sum() > 0
 
 
 @pytest.mark.gpu
