@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's join-correlation query paths (on one device
 and column-sharded over a device mesh), its serving drivers, its legacy
-query API and the paper's augmentation example, and its LM
-serving paths (dense, hybrid SSM, encoder–decoder, MoE, RWKV6), on one
-CUDA card.
+query API and the paper's augmentation example, its LM
+serving paths (dense, hybrid SSM, encoder–decoder, MoE, RWKV6) and LM
+training (the attention's backward kernel, tinyllama-1.1b trained at full
+size), on one CUDA card.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports only
@@ -264,6 +265,41 @@ fatal on failure (exit code 1, no result line):
                 ms by CUDA events. Every length is a multiple of 64 (the
                 reference's chunk rule runs any other as one chunk): (b)
                 pads the full sequence to one.
+  13. attention_bwd — the attention gradient's kernel
+                (``csrc/flash_attention_bwd.cu``) against its twin
+                (`ref.flash_attention_bwd`; float32 within 1e-5 and
+                bfloat16 within 2e-2 of each output's largest magnitude),
+                and two launches bit-equal, at the training path's launch
+                (tinyllama: q [2, 32, 2048, 64] bf16, k/v [2, 4, 2048,
+                64], causal) and a sweep: head dims 32, 64, 96, 128 in
+                both dtypes, window 1024, whisper's cross shape (416
+                queries on 1500 keys, non-causal), ragged Lq < Lk and rows
+                with no key; timed at the training launch (CUDA events and
+                ``torch.profiler``) beside its twin, its bound (five
+                products a kept pair at the BF16 tensor-core rate, the
+                float32 CUDA-core figure beside it) and the backward
+                alone of one SDPA call.
+  14. train   — tinyllama-1.1b at full width and depth (22 layers, d 2048,
+                32/4 heads, vocab 32000): f32 master weights from SEED,
+                forward in bf16, 4 × 2048 tokens of the memorisable batch
+                (tokens = position mod 17) in 2 microbatches, every layer
+                recomputed in the backward, AdamW (lr 1e-3, warmup 5), 30
+                steps with every launch count at 0. Checks: (i) the loss
+                falls below half the first, every loss and gradient norm
+                finite; (ii) every parameter leaf gets a finite, nonzero
+                gradient; (iii) flash_attention launches 2 × 22 × 2 and
+                its backward 22 × 2 a step; (iv) at 2 layers in float32
+                on a short batch, the card's loss and every gradient leaf
+                through the kernels equal the twin path's on the card and
+                the CPU plain path's (TRAIN_TOL of each leaf's largest
+                entry); (v) there 1 and 2 microbatches give the same
+                gradients; (vi) two 3-step runs from SEED are bit-equal
+                (library ops found not deterministic on the card are
+                named, and then the runs may differ by RESTART_SHARE of
+                the smallest step's lr). The line: step ms
+                p50/p99 (CUDA events, steps 5–30), tokens/s, peak memory,
+                one step's card ms in products, attention forward and
+                backward, optimizer and the rest (``torch.profiler``).
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
@@ -287,6 +323,9 @@ the rest), ``lm_hybrid``, ``lm_encdec``, ``lm_moe``, ``lm_moe_pair`` and
 ``lm_rwkv`` JSON lines of the same form (hymba's with the SSM's and its
 scan's card ms, whisper's with frames/s, the MoE lines with the prefill's
 capacity and dropped slots, rwkv6's with the time mix's and WKV's ms),
+an ``attention_bwd`` summary line, a ``train`` JSON line (the 30 losses and
+gradient norms, step ms p50/p99, tokens/s, peak memory, launches a step,
+checks (iv)–(vi), a one-step card profile),
 a ``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -330,6 +369,8 @@ from repro_torch.kernels import containment as CT  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.models import params as LMP  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.train import optimizer as OPT  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
 from repro_torch.kernels import hash_build as HB  # noqa: E402
 from repro_torch.kernels import postings as PM  # noqa: E402
 from repro_torch.kernels import rank_transform as RT  # noqa: E402
@@ -455,6 +496,30 @@ RWKV_CONFIG = LMR.get_config("rwkv6-3b")
 RWKV_PROMPT = 2048
 RWKV_CPU = (2, 256, 4, 0)
 WKV_CHUNK = 64
+#: the training phase: tinyllama-1.1b at full width and depth, f32 master
+#: weights, bf16 forward, TRAIN_BATCH × TRAIN_SEQ tokens in TRAIN_MB
+#: microbatches, TRAIN_STEPS steps of AdamW (TRAIN_OPT); the step times
+#: are read from step TRAIN_TIMED_FROM on
+TRAIN_CONFIG = LMR.get_config("tinyllama-1.1b")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS, TRAIN_TIMED_FROM = 4, 2048, 2, 30, 5
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5)
+#: checks (iv)–(v): (layers, sequences, tokens) of the cut float32 model;
+#: check (vi): steps of each run
+TRAIN_CUT = (2, 2, 256)
+TRAIN_RESTART_STEPS = 3
+#: (vi) where a library op of the step is not deterministic: the share of
+#: the smallest step's lr that two runs may differ by
+RESTART_SHARE = 0.1
+#: (iv)–(v): max |difference| over each leaf's largest |entry|
+TRAIN_TOL = 1e-3
+#: the backward kernel against its twin, by dtype: of each output's
+#: largest magnitude
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+#: the backward's kernels' names: flash_bwd_dq, flash_bwd_dkdv
+BWD_KERNEL = "flash_bwd"
+#: name fragments of cuBLAS's matrix-product kernels (nvjet: its bf16
+#: kernels on Hopper)
+PRODUCT_KERNELS = ("gemm", "xmma", "cutlass", "nvjet")
 #: (a) kernel path vs twin path and (c) card vs CPU: max |logit
 #: difference| over the largest |logit|, the unit of (b)'s 2e-3 / 5e-3
 LM_TOL = 2e-3
@@ -466,10 +531,11 @@ FLASH_KERNEL = "flash_fwd"
 #: the sketch join's other launch shapes: the one- and 8-query buckets
 JOIN_BUCKETS = (1, 8)
 #: H100 SXM data-sheet peaks: HBM bytes/s, float32 operations/s outside
-#: the tensor cores, and dense TF32 tensor-core operations/s
+#: the tensor cores, and dense TF32 and BF16 tensor-core operations/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 TF32_OPS_S = 495e12
+BF16_OPS_S = 989e12
 #: flash_fwd's split TF32: three TF32 products for each float32 product
 SPLIT_TF32_PRODUCTS = 3
 #: the attention kernel against its twin at the LM path's float32 prefill
@@ -2780,6 +2846,357 @@ def phase_lm_rwkv(dev):
                                  RWKV_CPU))
 
 
+def _bwd_cases():
+    """(what, (B, Hq, Hkv, Lq, Lk, D), causal, window, dtype) of every
+    check of the backward kernel: the training path's launch, then the
+    sweep."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    c = TRAIN_CONFIG
+    train = ("train", (TRAIN_BATCH // TRAIN_MB, c.num_heads, c.num_kv_heads, TRAIN_SEQ,
+                       TRAIN_SEQ, c.head_dim), True, 0, bf16)
+    sweep = [(f"D {D} {str(dt)[6:]}", (2, 8, 2, 384, 384, D), True, 0, dt)
+             for D in FA.HEAD_DIMS for dt in (f32, bf16)]
+    return [train] + sweep + [
+        ("window 1024", (1, 25, 5, 2048, 2048, 64), True, 1024, f32),
+        ("whisper cross", (2, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0, f32),
+        ("ragged Lq < Lk", (2, 32, 4, 300, 777, 64), True, 0, bf16),
+        ("rows with no key", (2, 8, 4, 100, 40, 64), True, 0, f32),
+    ]
+
+
+def _rel_each(got, want) -> float:
+    """The largest over the outputs of max |got − want| over max |want|."""
+    return max(_rel(g.float(), w.float()) for g, w in zip(got, want))
+
+
+def phase_attention_bwd(dev):
+    """The backward kernel against its twin at the training launch and the
+    sweep, bit-equal across two launches, then timed at the training
+    launch beside its twin, its bound and SDPA's backward."""
+    rng = torch.Generator(device=dev).manual_seed(SEED + 26)
+    errs, abs_err = {}, 0.0
+    for what, shape, causal, window, dt in _bwd_cases():
+        q, k, v = _flash_args(rng, dev, *shape, qdt=dt, kvdt=dt)
+        do = torch.randn(q.shape, generator=rng, device=dev).to(dt)
+        o = FA.flash_attention(q, k, v, causal=causal, window=window)
+        got = FA.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        again = FA.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        for g, a, x in zip(got, again, (q, k, v)):
+            if g.dtype != x.dtype or g.shape != x.shape:
+                fail(f"flash_attention_bwd ({what}): {g.dtype} {tuple(g.shape)}")
+            if not torch.equal(g, a):
+                fail(f"flash_attention_bwd ({what}): two launches differ")
+        errs[what] = _rel_each(got, want)
+        abs_err = max(abs_err, max(float((g.double() - w.double()).abs().max())
+                                   for g, w in zip(got, want)))
+        if not errs[what] <= BWD_TOL[dt]:
+            fail(f"flash_attention_bwd ({what}) differs from its twin by {errs[what]} of "
+                 f"the largest (limit {BWD_TOL[dt]})")
+        B, Hq, Hkv, Lq, Lk, D = shape
+        if what == "rows with no key" and bool(got[0][:, :, :Lq - Lk].any()):
+            fail("flash_attention_bwd: rows with no key got a gradient")
+        del q, k, v, do, o, got, again, want
+    torch.cuda.empty_cache()
+
+    _, shape, causal, window, dt = _bwd_cases()[0]
+    B, Hq, Hkv, S, _, D = shape
+    q, k, v = _flash_args(rng, dev, *shape, qdt=dt, kvdt=dt)
+    do = torch.randn(q.shape, generator=rng, device=dev).to(dt)
+    o = FA.flash_attention(q, k, v, causal=True)
+    kern = lambda: FA.flash_attention_bwd(q, k, v, o, do, causal=True)
+    # SDPA's backward alone: its forward outside the timed window
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                           enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+    check_close("SDPA's backward (the library yardstick)",
+                [g.float() for g in sdpa_bwd()], [g.float() for g in kern()], 5e-2)
+    # q, k, v, o, dO in and dq, dk, dv out once; five products of 2·D
+    # multiply-adds over each (query, key) pair the causal mask keeps, at
+    # the card's tensor-core rate for the inputs' type: BF16, or for
+    # float32 split TF32 (as flash_fwd's bound); the float32 CUDA-core
+    # figure is kept beside it, labelled
+    el = q.element_size()
+    nbytes = el * (4 * q.numel() + 4 * k.numel())
+    nops = 5 * 2.0 * D * B * Hq * S * (S + 1) / 2
+    work, route = ((nbytes, nops, BF16_OPS_S), "BF16 tensor cores, five products a pair")
+    if dt == torch.float32:
+        work = (nbytes, SPLIT_TF32_PRODUCTS * nops, TF32_OPS_S)
+        route = (f"TF32 tensor cores, five products a pair, {SPLIT_TF32_PRODUCTS} TF32 "
+                 f"products a float32 product (split TF32)")
+    row = dict(source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="none: src/repro/models/layers.py:91 (attend), differentiated by XLA; "
+                        "the Pallas kernel src/repro/kernels/flash_attention.py:73 has no "
+                        "backward",
+               max_abs_err=abs_err, max_rel_err_by_case=errs,
+               shape=[list(q.shape), list(k.shape), "bfloat16, causal"],
+               ms=cuda_ms(kern, 10), device_ms=profiled_ms(kern, 5, BWD_KERNEL),
+               plain_ms=cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do), 3, warm=1),
+               library_ms=cuda_ms(sdpa_bwd, 10),
+               library="the backward alone of scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) on the same bf16 inputs",
+               bound_route=route, work=work,
+               fp32_bound_ms=bound_ms(nbytes, nops, FP32_OPS_S)[0])
+    row["ptxas"] = {e: ln for e, ln in _ptxas("flash_attention_bwd")}
+    say(f"attention_bwd: {len(errs)} shapes (tinyllama's training launch, D 32/64/96/128 "
+        f"in f32 and bf16, window 1024, whisper's cross shape, ragged Lq < Lk, rows with no "
+        f"key) — each matches its twin (largest error {max(errs.values()):.3g} of the "
+        f"largest output) and is bit-equal across two launches; training launch "
+        f"{row['ms']:.4f} ms events, {row['device_ms']} ms device, twin "
+        f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} ms, bound "
+        f"{bound_ms(*row['work'])[0]:.4f} ms ({route}; "
+        f"{row['fp32_bound_ms']:.4f} ms on the float32 CUDA cores)")
+    del q, k, v, do, o, leaves, out
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": row}
+
+
+def _memorisable_batch(B, S, n_mb, dev):
+    """The reference test's batch (tests/test_train.py:13): tokens =
+    position mod 17, labels the next token (the last ignored),
+    microbatch-major."""
+    toks = (np.arange(S)[None, :].repeat(B, 0) % 17).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int32)], 1)
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            TS.reshape_batch({"tokens": toks, "labels": labels}, n_mb).items()}
+
+
+def _train_split(step):
+    """One call of ``step`` under the profiler: card ms in matrix products,
+    the attention forward, its backward, the optimizer (the kernels
+    launched inside `optimizer.apply`) and the rest, and the wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = OPT.apply
+
+    def apply(*args, **kw):
+        with record_function("adamw_apply"):
+            return saved(*args, **kw)
+
+    OPT.apply = apply
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        OPT.apply = saved
+    split = dict(products=0.0, attention_fwd=0.0, attention_bwd=0.0, optimizer=0.0, rest=0.0)
+    by_name = {}
+    for e in prof.events():
+        if e.name == "adamw_apply" and e.device_type == DeviceType.CPU:
+            split["optimizer"] += e.device_time_total / 1e3
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("attention_fwd" if FLASH_KERNEL in e.name else
+               "attention_bwd" if BWD_KERNEL in e.name else
+               "products" if any(t in e.name.lower() for t in PRODUCT_KERNELS)
+               else "rest")
+        split[key] += e.device_time_total / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    split["rest"] -= split["optimizer"]
+    split["wall"] = 1e3 * wall
+    split["top_kernels"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return split
+
+
+def _cut_grads(params, cfg, batch, n_mb):
+    """(loss, gradient leaves in sorted-key order) of `accumulate_grads`
+    over ``batch`` [B, S] cut into ``n_mb`` microbatches."""
+    loss, grads = TS.accumulate_grads(cfg, params, TS.reshape_batch(batch, n_mb))
+    return loss, OPT.tree_leaves(grads)
+
+
+def _leaf_rel(got, want) -> float:
+    """The largest over the leaves of max |got − want| over the leaf's
+    largest |want| (a leaf of zeros on both sides counts 0)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.double().cpu(), w.double().cpu()
+        top = float(w.abs().max())
+        d = float((g - w).abs().max())
+        worst = max(worst, d / top if top > 0 else d)
+    return worst
+
+
+def _nondeterministic_ops(dev, B, S, cfg):
+    """The library backward ops of the step, each run twice on the same
+    inputs at the step's shapes: the names of those whose gradients
+    differ (the embedding gather's and the cross-entropy gather's)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    emb = draw(cfg.vocab_size, cfg.d_model).bfloat16().requires_grad_()
+    up = draw(B, S, cfg.d_model).bfloat16()
+    c = min(S, TT._CE_CHUNK)     # one chunk of the head's loss
+    logits = draw(B, c, cfg.vocab_size).requires_grad_()
+    up2 = draw(B, c, 1)
+    cases = {
+        "embedding gather backward (index, embed[tokens])":
+            lambda: torch.autograd.grad(emb[toks], emb, up)[0],
+        "cross-entropy gather backward (gather)":
+            lambda: torch.autograd.grad(logits.gather(-1, toks[:, :c, None]), logits, up2)[0],
+    }
+    return [name for name, fn in cases.items() if not torch.equal(fn(), fn())]
+
+
+def phase_train(dev):
+    """tinyllama-1.1b trained at full width and depth on the card through
+    `train_step.make_train_step` (the attention kernel forward and
+    backward), with checks (i)–(vi); prints the ``train`` line and returns
+    the launches."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matrix products are on: the reference computes in float32")
+    cfg, B, S, n_mb = TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB
+    L = len(TT.layer_windows(cfg))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state = TS.init_state(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in OPT.tree_leaves(state.params))
+    tcfg = TS.TrainConfig(microbatches=n_mb, opt=OPT.AdamWConfig(**TRAIN_OPT))
+    step = TS.make_train_step(cfg, tcfg)
+    batch = _memorisable_batch(B, S, n_mb, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    marks, metrics = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        marks.append((e0, e1))
+        metrics.append((m["loss"], m["grad_norm"], float(m["lr"])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    losses = [float(x) for x, _, _ in metrics]
+    norms = [float(x) for _, x, _ in metrics]
+
+    # (i) the memorisable loss halves, everything finite
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"train: a non-finite loss or gradient norm: {losses} {norms}")
+    if not losses[-1] < 0.5 * losses[0]:
+        fail(f"train: the loss went from {losses[0]} to {losses[-1]} in {TRAIN_STEPS} "
+             f"steps, not below half")
+    # (iii) the kernels, not the twins: launches per step
+    want = {"flash_attention": 2 * L * n_mb, "flash_attention_bwd": L * n_mb}
+    for name, per in want.items():
+        if launches[name] != per * TRAIN_STEPS:
+            fail(f"train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
+                 f"expected {per} a step ({L} layers × {n_mb} microbatches"
+                 + (" × 2: the forward and its recomputation)" if per == 2 * L * n_mb else ")"))
+    # (ii) every leaf gets a finite, nonzero gradient (one microbatch)
+    _, g1 = TS.accumulate_grads(cfg, state.params, {k: v[:1] for k, v in batch.items()})
+    bad = [".".join(p) for p, g in OPT.tree_items(g1)
+           if not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0))]
+    if bad:
+        fail(f"train: parameter leaves with no gradient: {bad}")
+    n_leaves = len(OPT.tree_leaves(g1))
+    del g1
+    split = _train_split(lambda: step(state, batch))
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (iv) + (v) at a cut depth in float32: kernels vs twin path vs CPU;
+    # 1 vs 2 microbatches
+    n_layers, cb, cs = TRAIN_CUT
+    cfg2 = dataclasses.replace(cfg, num_layers=n_layers, dtype="float32")
+    p2 = LMP.init_params(cfg2, SEED, device=dev)
+    b = lm_batch(cfg2, cb, cs, seed=SEED, step=1)
+    b = {k: torch.from_numpy(v[0]) for k, v in b.items()}
+    bd = {k: v.to(dev) for k, v in b.items()}
+    ops.reset_launches()
+    loss_k, g_k = _cut_grads(p2, cfg2, bd, 1)
+    if ops.launches()["flash_attention_bwd"] != n_layers:
+        fail("train (iv): the cut model's gradient did not run the backward kernel")
+    with twin_attention():
+        loss_t, g_t = _cut_grads(p2, cfg2, bd, 1)
+    loss_m, g_m = _cut_grads(p2, cfg2, bd, 2)
+    p2_cpu = _tree(p2, lambda t: t.cpu())
+    del p2
+    loss_c, g_c = _cut_grads(p2_cpu, cfg2, b, 1)
+    err = dict(twin=_leaf_rel(g_k, g_t), cpu=_leaf_rel(g_k, g_c), microbatches=_leaf_rel(g_m, g_k),
+               loss_twin=abs(float(loss_k) - float(loss_t)) / abs(float(loss_t)),
+               loss_cpu=abs(float(loss_k) - float(loss_c)) / abs(float(loss_c)),
+               loss_microbatches=abs(float(loss_m) - float(loss_k)) / abs(float(loss_k)))
+    if not max(err.values()) <= TRAIN_TOL:
+        fail(f"train (iv)/(v): at {n_layers} layers in float32 the gradients differ: {err} "
+             f"(limit {TRAIN_TOL} of each leaf's largest entry)")
+    del g_k, g_t, g_m, g_c, p2_cpu
+    torch.cuda.empty_cache()
+
+    # (vi) two runs of a few steps from SEED: bit-equal, unless a library
+    # backward op of the step is not deterministic on this card
+    finals = []
+    for _ in range(2):
+        st = TS.init_state(cfg, SEED, device=dev)
+        run = TS.make_train_step(cfg, tcfg)
+        for _ in range(TRAIN_RESTART_STEPS):
+            st, _ = run(st, batch)
+        finals.append(st.params)
+        del st, run
+        torch.cuda.empty_cache()
+    pairs = list(zip(OPT.tree_leaves(finals[0]), OPT.tree_leaves(finals[1])))
+    restart_diff = max(float((a - b).abs().max()) for a, b in pairs)
+    restart_equal = all(torch.equal(a, b) for a, b in pairs)
+    del finals, pairs
+    torch.cuda.empty_cache()
+    nondet = _nondeterministic_ops(dev, B // n_mb, S, cfg)
+    say("train (vi): library backward ops not deterministic on this card: "
+        + (", ".join(nondet) if nondet else "none of the embedding and cross-entropy gathers"))
+    # no such op: bit-equality is required. Else the runs may differ, but by
+    # well below one step's update (a weight moves by up to lr a step):
+    # RESTART_SHARE of the smallest step's lr
+    restart_limit = 0.0
+    if nondet:
+        restart_limit = RESTART_SHARE * min(float(OPT.schedule(tcfg.opt, s))
+                                            for s in range(1, TRAIN_RESTART_STEPS + 1))
+        say(f"train (vi): two runs need not be bit-equal because of the ops above; limit "
+            f"{restart_limit} ({RESTART_SHARE} of the smallest step's lr)")
+    if not (restart_equal if not nondet else restart_diff <= restart_limit):
+        fail(f"train (vi): two {TRAIN_RESTART_STEPS}-step runs differ by {restart_diff} "
+             + (f"(limit {restart_limit})" if nondet else "and no op of the step is known "
+                "not to be deterministic: bit-equality is required"))
+
+    timed = step_ms[TRAIN_TIMED_FROM - 1:]
+    line = dict(
+        arch=cfg.name, layers=L, d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+        params=LMP.param_count(cfg), param_bytes=param_bytes, init_s=t_init,
+        batch=B, seq=S, microbatches=n_mb, steps=TRAIN_STEPS, dtype=cfg.dtype,
+        remat_policy=tcfg.remat_policy, opt=TRAIN_OPT,
+        loss_first=losses[0], loss_last=losses[-1], losses=losses, grad_norms=norms,
+        step_ms_p50=float(np.percentile(timed, 50)), step_ms_p99=float(np.percentile(timed, 99)),
+        step_ms_timed_from=TRAIN_TIMED_FROM, wall_s=wall,
+        tokens_s=B * S / (float(np.mean(timed)) / 1e3),
+        peak_alloc_bytes=peak, launches={k: launches[k] for k in want},
+        launches_per_step=want, leaves_with_gradient=n_leaves,
+        check_iv_v=err, check_iv_layers=n_layers, check_iv_tokens=[cb, cs],
+        restart_max_abs_diff=restart_diff, restart_bit_equal=restart_equal,
+        restart_limit=restart_limit,
+        nondeterministic_ops=nondet, step_profile_ms=split)
+    say("train " + json.dumps(line))
+    say(f"train: {cfg.name} ({L} layers, d {cfg.d_model}) trained {TRAIN_STEPS} steps of "
+        f"{B} × {S} tokens in {n_mb} microbatches: loss {losses[0]:.4f} → {losses[-1]:.4f}; "
+        f"step {line['step_ms_p50']:.1f} ms p50 ({line['tokens_s']:.0f} tokens/s), peak "
+        f"{peak / 1e9:.1f} GB; {want['flash_attention']} flash_attention and "
+        f"{want['flash_attention_bwd']} flash_attention_bwd launches a step; (ii) {n_leaves} "
+        f"leaves with a gradient; (iv) kernels == twin path ({err['twin']:.3g}) == CPU "
+        f"({err['cpu']:.3g}) at {n_layers} layers in float32, (v) 1 == 2 microbatches "
+        f"({err['microbatches']:.3g}); (vi) two {TRAIN_RESTART_STEPS}-step runs: max |diff| "
+        f"{restart_diff}, bit-equal {restart_equal}")
+    return launches
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2949,6 +3366,11 @@ def main(argv) -> None:
         for name, fn in (("lm", phase_lm), ("lm_hybrid", phase_lm_hybrid),
                          ("lm_encdec", phase_lm_encdec), ("lm_moe", phase_lm_moe),
                          ("lm_moe_pair", phase_lm_moe_pair), ("lm_rwkv", phase_lm_rwkv)))
+    rows.update(timed("attention_bwd", phase_attention_bwd, dev))
+    # the training path's launches: its forward's join the LM paths'
+    trained = timed("train", phase_train, dev)
+    launches["flash_attention"] += trained["flash_attention"]
+    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
     say("phases " + json.dumps(phases))
 
     kernels = []

@@ -7,7 +7,8 @@ as numpy — any object with the named attributes, such as
 ``repro.engine.index.IndexShard``, a ``repro.core.sketch.
 CorrelationSketch`` or a ``repro.engine.lifecycle.LiveIndex`` — so both
 engines can serve the same index. The LM substrate's state is its
-weights: `lm_params_from_reference` carries them over.
+weights, `lm_params_from_reference`, and in training its optimizer state
+too, `train_state_from_reference`.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from repro_torch import device as D
 from repro_torch.core.sketch import Agg, CorrelationSketch
 from repro_torch.engine.index import IndexShard, Postings, SketchIndex
 from repro_torch.engine.lifecycle import LiveIndex, Segment
+from repro_torch.train import optimizer as OPT
+from repro_torch.train.train_step import TrainState
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -116,3 +119,17 @@ def lm_params_from_reference(tree, device: D.DeviceLike = None) -> dict:
     return {k: (lm_params_from_reference(v, dev) if isinstance(v, dict)
                 else torch.from_numpy(np.array(v)).to(dev))
             for k, v in tree.items()}
+
+
+def train_state_from_reference(state, device: D.DeviceLike = None) -> TrainState:
+    """The port's `TrainState` for a reference ``TrainState`` (``params``,
+    ``opt.mu``, ``opt.nu``, ``opt.step``, ``step``; arrays as numpy or
+    anything ``np.asarray`` takes): every tensor a bit-for-bit copy, the
+    step counts host integers."""
+    dev = D.resolve(device)
+    return TrainState(
+        params=lm_params_from_reference(state.params, dev),
+        opt=OPT.AdamWState(mu=lm_params_from_reference(state.opt.mu, dev),
+                           nu=lm_params_from_reference(state.opt.nu, dev),
+                           step=int(np.asarray(state.opt.step))),
+        step=int(np.asarray(state.step)))

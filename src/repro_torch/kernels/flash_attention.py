@@ -1,4 +1,5 @@
-"""Wrapper of the Hopper attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the Hopper attention kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``) and the gradient that joins them.
 
 Replaces the Pallas kernel ``repro.kernels.flash_attention.flash_attention``:
 the forward pass of causal / sliding-window GQA attention, for any Lq and
@@ -11,6 +12,12 @@ The wrapper picks the kernel by shape: a launch with at most
 ``SPLIT_ROWS`` query rows (positions × heads of a group) per (batch, KV
 head) — decode — goes to ``flash_fwd_split``, which cuts the keys into
 runs (`split_plan`) and needs a workspace; the rest to ``flash_fwd``.
+
+`flash_attention_bwd` launches the gradient's two kernels (``flash_bwd_dq``
+then ``flash_bwd_dkdv``); the reference has no Pallas backward, it
+differentiates XLA's attention. Its plain twin is
+`repro_torch.kernels.ref.flash_attention_bwd`; the gradient that joins the
+two kernels is `repro_torch.kernels.ops.FlashAttention`.
 """
 from __future__ import annotations
 
@@ -128,3 +135,69 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 flash_attention.launches = 0
+
+
+@functools.cache
+def _bwd_launch_fn():
+    f = build.library("flash_attention_bwd").flash_attention_bwd_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [P] * 11 + [I] * 10 + [P]
+    f.restype = I
+    return f
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0):
+    """Launch the gradient's kernels: given the forward's inputs, its output
+    ``o`` and the loss's gradient ``do`` with respect to it (both [B, Hq,
+    Lq, D] in q's dtype), return (dq, dk, dv) in q's, k's and v's shapes
+    and dtypes, laid out ``[B, L, H, D]`` (as the forward's output, so the
+    views `layers.attend` transposes back are contiguous). ``do`` may be
+    any strided view whose last dimension is contiguous; where it is not
+    (a gradient autograd expanded from a scalar, stride 0), the wrapper
+    makes a contiguous copy of it, the only copy it makes. The row
+    statistics go to an f32 workspace [2, B, Hq, Lq] of its own."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the flash_attention_bwd kernel runs on CUDA, not {dev}")
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of the kernel's {HEAD_DIMS}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
+    if do.numel() and do.shape[-1] > 1 and do.stride(-1) != 1:
+        do = do.contiguous()
+    for t, name, shape in ((q, "q", (B, Hq, Lq, D)), (k, "k", (B, Hkv, Lk, D)),
+                           (v, "v", (B, Hkv, Lk, D)), (o, "o", (B, Hq, Lq, D)),
+                           (do, "grad_output", (B, Hq, Lq, D))):
+        _check(t, name, shape, dev)
+    if v.dtype != k.dtype:
+        raise ValueError(f"k is {k.dtype} but v is {v.dtype}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o ({o.dtype}) and grad_output ({do.dtype}) must have "
+                         f"q's dtype {q.dtype}")
+    grad = lambda dt, H, L: torch.empty((B, L, H, D), dtype=dt, device=dev).transpose(1, 2)
+    dq, dk, dv = grad(q.dtype, Hq, Lq), grad(k.dtype, Hkv, Lk), grad(k.dtype, Hkv, Lk)
+    if Lq == 0 or B == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if Lk == 0:
+        return dq.zero_(), dk, dv
+    stats = torch.empty((2, B, Hq, Lq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
+                                         for i in range(3)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _bwd_launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                               stats[0].data_ptr(), stats[1].data_ptr(),
+                               ctypes.addressof(strides), B, Hq, Hkv, Lq, Lk, D,
+                               int(bool(causal)), int(window), _DTYPES[q.dtype],
+                               _DTYPES[k.dtype], stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
+    build.count_launch(flash_attention_bwd)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+

@@ -38,6 +38,7 @@ LAUNCH_COUNTERS = {
     "postings_select": _pm.postings_select,
     "hash_build": _hb.hash_build,
     "flash_attention": _fa.flash_attention,
+    "flash_attention_bwd": _fa.flash_attention_bwd,
 }
 
 
@@ -186,12 +187,46 @@ def hash_build(keys):
     return impl(keys)
 
 
+def _attention_impls(q):
+    """(forward, backward) for q's device: the kernels on CUDA, the twins
+    on the CPU."""
+    if _on_cuda(q):
+        return _fa.flash_attention, _fa.flash_attention_bwd
+    return _ref.flash_attention, _ref.flash_attention_bwd
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: on CUDA tensors the forward and backward
+    kernels, on CPU tensors their plain twins. It saves q, k, v and o for
+    the backward (`flash_attention` calls it only when a gradient is
+    wanted)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o = _attention_impls(q)[0](q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _attention_impls(q)[1](q, k, v, o, do, causal=ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Causal / sliding-window GQA attention: q [B, Hq, Lq, D], k and v
     [B, Hkv, Lk, D] (strided views, f32 or bf16 each) → [B, Hq, Lq, D] in
-    q's dtype; positions right-aligned (query i sits at Lk − Lq + i)."""
-    impl = _fa.flash_attention if _on_cuda(q) else _ref.flash_attention
-    return impl(q, k, v, causal=causal, window=window)
+    q's dtype; positions right-aligned (query i sits at Lk − Lq + i).
+    Differentiable: when grad mode is on and q, k or v requires a gradient
+    it goes through `FlashAttention`, whose gradient is the backward kernel
+    on CUDA and the twin's on the CPU; otherwise it is the forward alone,
+    which saves nothing, so serving launches and allocates as before."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal), int(window))
+    return _attention_impls(q)[0](q, k, v, causal=causal, window=window)
 
 
 # moment → statistics helpers shared by the engine

@@ -438,6 +438,34 @@ def hash_build(keys):
 # flash_attention: causal / sliding-window GQA attention (forward)
 # ----------------------------------------------------------------------------
 
+def _attention_keep(Lq: int, Lk: int, causal: bool, window: int, device):
+    """The [Lq, Lk] mask of the (query, key) pairs attention keeps: queries
+    right-aligned (query i at Lk − Lq + i), ``causal`` keys at or before
+    it, ``window > 0`` the last ``window`` of those."""
+    qpos = torch.arange(Lq, device=device)[:, None] + (Lk - Lq)
+    kpos = torch.arange(Lk, device=device)[None, :]
+    keep = torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= kpos <= qpos
+    if window > 0:
+        keep &= kpos > qpos - window
+    return keep
+
+
+def _attention_probs(q, k, causal: bool, window: int):
+    """(P [B, Hq, Lq, Lk] f32, K repeated over the group [B, Hq, Lk, D] f32):
+    the softmax of the masked logits, 0 in a row with no key left."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
+    kq = k.to(torch.float32).repeat_interleave(Hq // Hkv, dim=1)
+    logits = torch.matmul(q.to(torch.float32), kq.transpose(-1, -2)) * (1.0 / np.sqrt(D))
+    keep = _attention_keep(Lq, Lk, causal, window, q.device)
+    p = torch.softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.nan_to_num(p, nan=0.0), kq  # rows with every key masked
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B, Hq, Lq, D], k and v [B, Hkv, Lk, D] (any strides; f32 or bf16,
     each on its own) → [B, Hq, Lq, D] in q's dtype. Query head h reads KV
@@ -445,21 +473,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     (query i sits at Lk − Lq + i), so ``causal`` keeps keys at or before
     it and ``window > 0`` keeps the last ``window`` of those. Logits,
     softmax and sums in f32; a row with no key left gives 0."""
+    p, _ = _attention_probs(q, k, causal, window)
+    vq = v.to(torch.float32).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return torch.matmul(p, vq).to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0):
+    """The gradient of `flash_attention` (same masks and layouts): given its
+    output ``o`` [B, Hq, Lq, D] and the gradient ``do`` of the loss with
+    respect to it, returns (dq, dk, dv) in q's, k's and v's dtypes. In
+    f32: P recomputed; dV = Σ_group Pᵀ·dO; dP = dO·Vᵀ; Dᵢ = rowsum(dO ∘ O);
+    dS = P ∘ (dP − D); dQ = dS·K/√D; dK = Σ_group dSᵀ·Q/√D. A row with no
+    key left has P = 0, so it gets zero gradients and gives none."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    if Hq % Hkv:
-        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
     group = Hq // Hkv
-    kq = k.to(torch.float32).repeat_interleave(group, dim=1)
-    vq = v.to(torch.float32).repeat_interleave(group, dim=1)
-    logits = torch.matmul(q.to(torch.float32), kq.transpose(-1, -2)) * (1.0 / np.sqrt(D))
-    qpos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
-    kpos = torch.arange(Lk, device=q.device)[None, :]
-    keep = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
-    if causal:
-        keep &= kpos <= qpos
-    if window > 0:
-        keep &= kpos > qpos - window
-    p = torch.softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)  # rows with every key masked
-    return torch.matmul(p, vq).to(q.dtype)
+    f32 = torch.float32
+    p, kq = _attention_probs(q, k, causal, window)
+    vq = v.to(f32).repeat_interleave(group, dim=1)
+    do32 = do.to(f32)
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    dp = torch.matmul(do32, vq.transpose(-1, -2))
+    ds = p * (dp - (do32 * o.to(f32)).sum(-1, keepdim=True))
+    scale = 1.0 / np.sqrt(D)
+    dq = torch.matmul(ds, kq) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(f32)) * scale
+    fold = lambda t: t.reshape(B, Hkv, group, Lk, D).sum(2)
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)

@@ -40,10 +40,19 @@ def _doubling_scan(a, b):
     """Inclusive scan along dim 1 of the affine maps h ↦ a·h + b: returns
     (A, B) with (A[:, t], B[:, t]) the composition of steps 0 … t, the
     reference's combine (a_l·a_r, a_r·b_l + b_r) applied in ⌈log2 c⌉
-    doubling steps. Ping-pongs between the inputs and two buffers of their
-    size (which it overwrites), so a step reads each operand once and
-    writes each result once."""
+    doubling steps. Serving ping-pongs between the inputs and two buffers
+    of their size (which it overwrites), so a step reads each operand once
+    and writes each result once. Where autograd records (training: grad
+    on and an input requiring it), it refuses writes through ``out=``, so
+    each step makes new tensors of the same operations in the same order:
+    the values are bit-identical."""
     c, d = a.shape[1], 1
+    if a.requires_grad or b.requires_grad:
+        while d < c:
+            b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], 1)
+            a = torch.cat([a[:, :d], torch.mul(a[:, d:], a[:, :-d])], 1)
+            d *= 2
+        return a, b
     if c > 1:
         a2, b2 = torch.empty_like(a), torch.empty_like(b)
     while d < c:
@@ -57,15 +66,19 @@ def _doubling_scan(a, b):
 
 def _chunk_step(h, x_c, p, cfg, A):
     """One chunk x_c [B, c, di]: project, discretise, scan; returns the
-    state after it [B, di, st] and its outputs [B, c, di] (f32)."""
+    state after it [B, di, st] and its outputs [B, c, di] (f32). In place
+    when serving, out of place where autograd records (the same values)."""
     st, dtr = cfg.ssm_state, cfg.ssm_dt_rank
     proj = matmul(x_c, p["x_proj"])
     dt, Bc, Cc = torch.split(proj, [dtr, st, st], dim=-1)
     dt = _softplus(matmul(dt, p["dt_proj"]) + p["dt_bias"])
-    a_c = (dt.to(torch.float32)[..., None] * A).exp_()                   # [B, c, di, st]
+    a_c = dt.to(torch.float32)[..., None] * A                             # [B, c, di, st]
+    a_c = a_c.exp() if a_c.requires_grad else a_c.exp_()
     b_c = (dt * x_c).to(torch.float32)[..., None] * Bc.to(torch.float32)[:, :, None, :]
     a_s, b_s = _doubling_scan(a_c, b_c)
-    h_c = b_s.addcmul_(a_s, h[:, None])                                   # [B, c, di, st]
+    taped = a_s.requires_grad or b_s.requires_grad or h.requires_grad
+    h_c = (b_s.addcmul(a_s, h[:, None]) if taped
+           else b_s.addcmul_(a_s, h[:, None]))                            # [B, c, di, st]
     y_c = torch.matmul(h_c, Cc.to(torch.float32)[..., None])[..., 0]
     return h_c[:, -1].clone(), y_c     # a copy: a view would keep h_c alive
 
@@ -170,7 +183,11 @@ def _rwkv_wkv_chunk(r, k, v, logw, u, S0, chunk: int):
         y = torch.einsum("bthi,bhij->bthj", rc * torch.exp(P), S)
         # intra-chunk: pair (t, i < t) decays by e^{P_t − (P_i + w_i)}
         dec = torch.exp(torch.where(later, P[:, :, None] - Pw[:, None, :], -torch.inf))
-        scores = dec.mul_(kc[:, None]).mul_(rc[:, :, None]).sum(-1)      # [B, t, i, H]
+        # in place when serving; exp's backward reads its output, so out
+        # of place where autograd records (the same values)
+        taped = dec.requires_grad or kc.requires_grad or rc.requires_grad
+        scores = (dec * kc[:, None] * rc[:, :, None] if taped
+                  else dec.mul_(kc[:, None]).mul_(rc[:, :, None])).sum(-1)  # [B, t, i, H]
         y = y + torch.einsum("btih,bihd->bthd", scores, vc)
         # bonus diagonal: (r_t · (u ⊙ k_t)) v_t
         y = y + (rc * u * kc).sum(-1, keepdim=True) * vc

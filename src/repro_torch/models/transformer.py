@@ -14,6 +14,11 @@ cross-attention to its output). Every attention runs the port's attention
 kernel (`repro_torch.models.layers.attend`).
 
 Paths:
+  * ``forward_train``  — the training loss (token-mean cross-entropy, the
+    head fused with it in sequence chunks), every layer recomputed in the
+    backward (``torch.utils.checkpoint``, the reference's remat); MoE
+    layers through capacity dispatch. Its gradient runs the attention
+    kernel's backward (`repro_torch.kernels.ops.FlashAttention`).
   * ``forward_logits`` — full-sequence logits, the reference the cache is
     checked against.
   * ``prefill``        — a prompt's last-token logits and its decode cache:
@@ -39,10 +44,12 @@ inputs in the cache's dtype, the WKV state in float32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as CK
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
@@ -193,6 +200,128 @@ def forward_logits(params, cfg: ModelConfig, batch, moe_dense: bool = False) -> 
         x = block(x, _layer(_decoder(params, cfg), li), cfg, cs=cs, window=int(w),
                   enc_out=enc_out, moe_dense=moe_dense)
     return lm_head(params, cfg, x)
+
+
+# ----------------------------------------------------------------------------
+# training forward
+# ----------------------------------------------------------------------------
+
+def cross_entropy(logits, labels):
+    """Masked token-mean CE; labels < 0 are ignored."""
+    mask = (labels >= 0).to(torch.float32)
+    safe = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+#: sequence-chunk size for the fused head+CE loss; keeps the [tokens, V]
+#: logits of a chunk, not of the sequence, live in the forward
+_CE_CHUNK = 512
+
+
+def head_loss_chunked(params, cfg: ModelConfig, x, labels):
+    """Fused final-norm → head-matmul → CE over sequence chunks of
+    `_CE_CHUNK` (when it divides S and S > `_CE_CHUNK`; else one chunk),
+    in float32. Returns (nll_sum, count), summed chunk by chunk."""
+    B, S, d = x.shape
+    x = LY.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    w = (params["embed"].T if cfg.tie_embeddings else params["head"]).to(torch.float32)
+    chunk = _CE_CHUNK if (S % _CE_CHUNK == 0 and S > _CE_CHUNK) else S
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        logits = torch.matmul(x[:, c0:c0 + chunk].to(torch.float32), w)
+        lc = labels[:, c0:c0 + chunk]
+        mask = (lc >= 0).to(torch.float32)
+        gold = logits.gather(-1, lc.clamp_min(0).long()[..., None])[..., 0]
+        nll = nll + ((torch.logsumexp(logits, dim=-1) - gold) * mask).sum()
+        cnt = cnt + mask.sum()
+    return nll, cnt
+
+
+#: matrix products, whose outputs ``remat_policy="dots"`` keeps
+_DOTS = frozenset(getattr(torch.ops.aten, n).default
+                  for n in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``"dots"``: keep the outputs of
+    the matrix products, recompute the rest (JAX's ``dots_saveable``)."""
+    policy = CK.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat_policy: str):
+    """``fn(x)`` recomputed in the backward (the reference's per-layer
+    ``jax.checkpoint``): ``"nothing"`` saves only its input, ``"dots"``
+    also the outputs of its products. The numbers are the same either way."""
+    if remat_policy == "nothing":
+        return lambda x: CK.checkpoint(fn, x, use_reentrant=False)
+    if remat_policy == "dots":
+        ctx = functools.partial(CK.create_selective_checkpoint_contexts, _save_dots)
+        return lambda x: CK.checkpoint(fn, x, use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"remat_policy {remat_policy!r}: one of 'nothing', 'dots'")
+
+
+def _train_blocks(x, blocks, cfg: ModelConfig, cs, *, causal=True, enc_out=None,
+                  remat_policy: str = "nothing"):
+    """The layer stack for training, each layer (a llama4 pair) recomputed
+    in the backward; each layer keeps its own window (hymba's global
+    layers among windowed ones; an encoder: full attention). MoE layers
+    run capacity dispatch."""
+    windows = (layer_windows(cfg) if causal
+               else np.zeros((cfg.encoder_layers,), np.int32))
+    for w, p in zip(windows, _unbind_layers(blocks)):
+        fn = functools.partial(block, p=p, cfg=cfg, cs=cs, window=int(w), causal=causal,
+                               enc_out=enc_out)
+        x = _remat(fn, remat_policy)(x)
+    return x
+
+
+def _unbind_layers(blocks: dict) -> list:
+    """Every layer's parameters, as views cut from the stacked tensors at
+    once (``torch.unbind``): their gradient stacks the layers' gradients
+    in one write, where one slice a layer (`_layer`) would add a zero-filled
+    full-size gradient per layer, L² of the leaf's bytes."""
+    per = {k: _unbind_layers(v) if isinstance(v, dict) else torch.unbind(v)
+           for k, v in blocks.items()}
+    L = len(next(iter(per.values())))
+    return [{k: v[li] for k, v in per.items()} for li in range(L)]
+
+
+def _positions(S: int, dev):
+    return torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+
+
+def forward_train(params, cfg: ModelConfig, batch, remat_policy: str = "nothing"):
+    """The training loss, a float32 scalar. ``batch``: ``tokens`` [B, S],
+    ``labels`` [B, S] (< 0 ignored) and, for a prefix adapter,
+    ``prefix_embeds`` [B, P, d]; an encoder–decoder takes ``frames`` [B,
+    S_src, d], ``target_tokens`` and ``target_labels`` [B, S] instead (and
+    its layers are recomputed with ``"nothing"``, as the reference's)."""
+    if cfg.encoder_layers > 0:
+        return _forward_encdec(params, cfg, batch)
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens, batch.get("prefix_embeds"))
+    cs = _rope(cfg, _positions(tokens.shape[1], tokens.device))
+    x = _train_blocks(x, params["blocks"], cfg, cs, remat_policy=remat_policy)
+    nll, cnt = head_loss_chunked(params, cfg, x, batch["labels"])
+    return nll / cnt.clamp_min(1.0)
+
+
+def _forward_encdec(params, cfg: ModelConfig, batch):
+    frames = batch["frames"]
+    S_src, dt = frames.shape[1], _dtype(cfg)
+    x = frames.to(dt) + params["enc_pos"][:S_src].to(dt)
+    x = _train_blocks(x, params["enc_blocks"], cfg, _rope(cfg, _positions(S_src, x.device)),
+                      causal=False)
+    enc_out = LY.rms_norm(x, params["ln_enc"], cfg.norm_eps)
+    tgt = batch["target_tokens"]
+    y = embed_tokens(params, cfg, tgt)
+    y = _train_blocks(y, params["dec_blocks"], cfg, _rope(cfg, _positions(tgt.shape[1], y.device)),
+                      enc_out=enc_out)
+    return cross_entropy(lm_head(params, cfg, y), batch["target_labels"])
 
 
 # ----------------------------------------------------------------------------

@@ -17,7 +17,7 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 57, mods
+assert len(mods) >= 60, mods
 for new in ("core.containment", "engine.candidates", "kernels.containment",
             "kernels.postings", "engine.lifecycle", "kernels.hash_build",
             "core.estimators", "core.join", "core.ranking",
@@ -30,7 +30,8 @@ for new in ("core.containment", "engine.candidates", "kernels.containment",
             "configs.llava_next_mistral_7b", "configs.phi3_mini_3_8b",
             "configs.qwen15_0_5b", "configs.rwkv6_3b",
             "configs.starcoder2_15b", "configs.tinyllama_1_1b",
-            "configs.whisper_small"):
+            "configs.whisper_small", "train", "train.optimizer",
+            "train.train_step"):
     assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
