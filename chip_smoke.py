@@ -515,8 +515,16 @@ TRAIN_TOL = 1e-3
 #: the backward kernel against its twin, by dtype: of each output's
 #: largest magnitude
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-#: the backward's kernels' names: flash_bwd_dq, flash_bwd_dkdv
+#: the backward's kernels' names: flash_bwd_stats, flash_bwd_dq_tc and
+#: flash_bwd_dkdv_tc (bf16, tensor cores), flash_bwd_dq and flash_bwd_dkdv
+#: (float32 and mixed dtypes, CUDA cores)
 BWD_KERNEL = "flash_bwd"
+#: the bf16 route's kernels, each timed alone at the training launch (a
+#: name fragment each) and each held to issue bf16 tensor-core products
+#: (HMMA.16816.F32.BF16) and asynchronous copies (LDGSTS) in its SASS
+BWD_PARTS = ("flash_bwd_stats", "flash_bwd_dq", "flash_bwd_dkdv")
+BWD_TC_KERNELS = ("flash_bwd_stats", "flash_bwd_dq_tc", "flash_bwd_dkdv_tc")
+BWD_SASS_OPS = ("HMMA.16816.F32.BF16", "LDGSTS")
 #: name fragments of cuBLAS's matrix-product kernels (nvjet: its bf16
 #: kernels on Hopper)
 PRODUCT_KERNELS = ("gemm", "xmma", "cutlass", "nvjet")
@@ -2856,11 +2864,17 @@ def _bwd_cases():
                        TRAIN_SEQ, c.head_dim), True, 0, bf16)
     sweep = [(f"D {D} {str(dt)[6:]}", (2, 8, 2, 384, 384, D), True, 0, dt)
              for D in FA.HEAD_DIMS for dt in (f32, bf16)]
+    # the window, cross and no-key shapes in both dtypes: bf16 takes the
+    # tensor-core kernels, float32 the CUDA-core ones
+    window, cross = (1, 25, 5, 2048, 2048, 64), (2, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64)
     return [train] + sweep + [
-        ("window 1024", (1, 25, 5, 2048, 2048, 64), True, 1024, f32),
-        ("whisper cross", (2, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0, f32),
+        ("window 1024", window, True, 1024, f32),
+        ("window 1024 bf16", window, True, 1024, bf16),
+        ("whisper cross", cross, False, 0, f32),
+        ("whisper cross bf16", cross, False, 0, bf16),
         ("ragged Lq < Lk", (2, 32, 4, 300, 777, 64), True, 0, bf16),
         ("rows with no key", (2, 8, 4, 100, 40, 64), True, 0, f32),
+        ("rows with no key bf16", (2, 8, 4, 100, 40, 64), True, 0, bf16),
     ]
 
 
@@ -2895,7 +2909,7 @@ def phase_attention_bwd(dev):
             fail(f"flash_attention_bwd ({what}) differs from its twin by {errs[what]} of "
                  f"the largest (limit {BWD_TOL[dt]})")
         B, Hq, Hkv, Lq, Lk, D = shape
-        if what == "rows with no key" and bool(got[0][:, :, :Lq - Lk].any()):
+        if what.startswith("rows with no key") and bool(got[0][:, :, :Lq - Lk].any()):
             fail("flash_attention_bwd: rows with no key got a gradient")
         del q, k, v, do, o, got, again, want
     torch.cuda.empty_cache()
@@ -2933,21 +2947,27 @@ def phase_attention_bwd(dev):
                max_abs_err=abs_err, max_rel_err_by_case=errs,
                shape=[list(q.shape), list(k.shape), "bfloat16, causal"],
                ms=cuda_ms(kern, 10), device_ms=profiled_ms(kern, 5, BWD_KERNEL),
+               device_ms_by_kernel={p: profiled_ms(kern, 5, p) for p in BWD_PARTS},
                plain_ms=cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do), 3, warm=1),
                library_ms=cuda_ms(sdpa_bwd, 10),
                library="the backward alone of scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True) on the same bf16 inputs",
                bound_route=route, work=work,
                fp32_bound_ms=bound_ms(nbytes, nops, FP32_OPS_S)[0])
-    row["ptxas"] = {e: ln for e, ln in _ptxas("flash_attention_bwd")}
+    row["ptxas"] = {}
+    for e, ln in _ptxas("flash_attention_bwd"):
+        row["ptxas"][e] = f"{row['ptxas'][e]}; {ln}" if e in row["ptxas"] else ln
+    row["sass"] = _sass_counts("flash_attention_bwd", BWD_TC_KERNELS, BWD_SASS_OPS)
     say(f"attention_bwd: {len(errs)} shapes (tinyllama's training launch, D 32/64/96/128 "
-        f"in f32 and bf16, window 1024, whisper's cross shape, ragged Lq < Lk, rows with no "
-        f"key) — each matches its twin (largest error {max(errs.values()):.3g} of the "
-        f"largest output) and is bit-equal across two launches; training launch "
-        f"{row['ms']:.4f} ms events, {row['device_ms']} ms device, twin "
+        f"in f32 and bf16; window 1024, whisper's cross shape and rows with no key in f32 "
+        f"and bf16; ragged Lq < Lk) — each matches its twin (largest error "
+        f"{max(errs.values()):.3g} of the largest output) and is bit-equal across two "
+        f"launches; training launch {row['ms']:.4f} ms events, {row['device_ms']} ms device "
+        f"({', '.join(f'{p} {v}' for p, v in row['device_ms_by_kernel'].items())}), twin "
         f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} ms, bound "
         f"{bound_ms(*row['work'])[0]:.4f} ms ({route}; "
-        f"{row['fp32_bound_ms']:.4f} ms on the float32 CUDA cores)")
+        f"{row['fp32_bound_ms']:.4f} ms on the float32 CUDA cores); SASS "
+        f"{json.dumps(row['sass'])}")
     del q, k, v, do, o, leaves, out
     torch.cuda.empty_cache()
     return {"flash_attention_bwd": row}
@@ -3270,6 +3290,28 @@ def _ptxas(name: str):
     return out
 
 
+def _sass_counts(name: str, kernels, ops):
+    """{function: {op: count}} over the functions of library ``name`` whose
+    mangled name holds one of ``kernels``: how many SASS lines of each
+    holds each of ``ops`` (``cuobjdump -sass`` of the built library)."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    dump = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    if dump.returncode:
+        fail(f"cuobjdump -sass {name}: {dump.stderr.strip()}")
+    out, cur = {}, None
+    for ln in dump.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            hit = [k for k in kernels if k in fn]
+            dim = fn.split("ILi", 1)[1].split("E", 1)[0] if "ILi" in fn else "?"
+            cur = out.setdefault(f"{hit[0]}<{dim}>", dict.fromkeys(ops, 0)) if hit else None
+        elif cur is not None:
+            for op in ops:
+                cur[op] += op in ln
+    return out
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3325,6 +3367,7 @@ def main(argv) -> None:
         rows.update(phase_rank_transform(index, keys, vals, dev))
         rows.update(phase_stage1_kernels(index, keys, vals, dev))
         rows.update(phase_flash(dev))
+        rows.update(phase_attention_bwd(dev))
         phase_two_stage(index, keys, vals, dev)
         phase_lifecycle(groups, index, keys, vals, dev)
         phase_library(index, keys, vals, best, dev)
@@ -3367,6 +3410,11 @@ def main(argv) -> None:
                          ("lm_encdec", phase_lm_encdec), ("lm_moe", phase_lm_moe),
                          ("lm_moe_pair", phase_lm_moe_pair), ("lm_rwkv", phase_lm_rwkv)))
     rows.update(timed("attention_bwd", phase_attention_bwd, dev))
+    # every head dim's bf16 kernels on the tensor cores, fed by cp.async
+    sass = rows["flash_attention_bwd"]["sass"]
+    if len(sass) != len(BWD_TC_KERNELS) * len(FA.HEAD_DIMS) or not all(
+            all(c.values()) for c in sass.values()):
+        fail(f"flash_attention_bwd: the bf16 kernels' SASS lacks {BWD_SASS_OPS}: {sass}")
     # the training path's launches: its forward's join the LM paths'
     trained = timed("train", phase_train, dev)
     launches["flash_attention"] += trained["flash_attention"]

@@ -13,9 +13,13 @@ The wrapper picks the kernel by shape: a launch with at most
 head) — decode — goes to ``flash_fwd_split``, which cuts the keys into
 runs (`split_plan`) and needs a workspace; the rest to ``flash_fwd``.
 
-`flash_attention_bwd` launches the gradient's two kernels (``flash_bwd_dq``
-then ``flash_bwd_dkdv``); the reference has no Pallas backward, it
-differentiates XLA's attention. Its plain twin is
+`flash_attention_bwd` launches the gradient's kernels; the reference has
+no Pallas backward, it differentiates XLA's attention. When q, k and v are
+all bfloat16 (the training launch) they are the tensor-core kernels
+``flash_bwd_stats`` (each row's log-sum-exp and rowsum(dO ∘ O)), then
+``flash_bwd_dq_tc`` and ``flash_bwd_dkdv_tc``; float32 and mixed launches
+take the float32 CUDA-core kernels ``flash_bwd_dq`` then
+``flash_bwd_dkdv``. Its plain twin is
 `repro_torch.kernels.ref.flash_attention_bwd`; the gradient that joins the
 two kernels is `repro_torch.kernels.ops.FlashAttention`.
 """
@@ -141,9 +145,42 @@ flash_attention.launches = 0
 def _bwd_launch_fn():
     f = build.library("flash_attention_bwd").flash_attention_bwd_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    f.argtypes = [P] * 11 + [I] * 10 + [P]
+    f.argtypes = [P] * 11 + [I] * 11 + [P] * 2
     f.restype = I
     return f
+
+
+#: the most (query head, query tile) steps one ``flash_bwd_dkdv_tc`` block
+#: walks where its KV head's group of query heads can be cut to stay under
+DKDV_WALK = 128
+
+
+@functools.lru_cache(maxsize=256)
+def dkdv_splits(Hq: int, Hkv: int, Lq: int, Lk: int, causal: bool, window: int,
+                walk: int) -> int:
+    """The blocks among which ``flash_bwd_dkdv_tc`` cuts a KV head's group
+    of query heads: the fewest (a divisor of the group) that keep the
+    heaviest block's walk — the query tiles that see its 64 keys
+    (``query_span`` in csrc/flash_attention_bwd.cu) times its heads —
+    within ``walk`` steps, else one head a block. A function of the shape
+    alone, so a launch's bits do not depend on the card."""
+    group, off, tile = Hq // Hkv, Lk - Lq, 64
+    most = 0
+    for k0 in range(0, Lk, tile):
+        k1 = min(k0 + tile, Lk)
+        lo = min(Lq, max(0, k0 - off)) if causal else 0
+        hi = min(Lq, max(0, k1 - 1 + window - off)) if window > 0 else Lq
+        if hi > lo:
+            most = max(most, -(-hi // tile) - lo // tile)
+    return next(s for s in range(1, group + 1)
+                if group % s == 0 and (most * (group // s) <= walk or s == group))
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every [.., .., L, D] row of ``t`` starts on a 16-byte boundary (the
+    tensor-core kernels stage rows by 16-byte asynchronous copies)."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % step == 0 for i in range(3))
 
 
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0):
@@ -151,11 +188,19 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0)
     ``o`` and the loss's gradient ``do`` with respect to it (both [B, Hq,
     Lq, D] in q's dtype), return (dq, dk, dv) in q's, k's and v's shapes
     and dtypes, laid out ``[B, L, H, D]`` (as the forward's output, so the
-    views `layers.attend` transposes back are contiguous). ``do`` may be
-    any strided view whose last dimension is contiguous; where it is not
-    (a gradient autograd expanded from a scalar, stride 0), the wrapper
-    makes a contiguous copy of it, the only copy it makes. The row
-    statistics go to an f32 workspace [2, B, Hq, Lq] of its own."""
+    views `layers.attend` transposes back are contiguous).
+
+    bf16 q and k/v take the tensor-core route: three kernels, every product
+    a bf16 ``mma.sync`` with f32 sums, P and dS rounded to bf16 for the
+    products that take them, dq, dk, dv rounded once; float32 and mixed
+    dtypes take the float32 CUDA-core route. Either is deterministic: two
+    launches give the same bits. ``do`` may be any strided view whose last
+    dimension is contiguous; where it is not (a gradient autograd expanded
+    from a scalar, stride 0), or on the bf16 route its rows are not 16-byte
+    aligned, the wrapper makes a contiguous copy of it, the only copy it
+    makes; q, k, v and o with unaligned rows are refused on that route. The
+    row statistics go to an f32 workspace [2, B, Hq, Lq rounded up to 64]
+    of its own."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the flash_attention_bwd kernel runs on CUDA, not {dev}")
@@ -165,12 +210,17 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0)
         raise ValueError(f"head dim {D} is not one of the kernel's {HEAD_DIMS}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
-    if do.numel() and do.shape[-1] > 1 and do.stride(-1) != 1:
-        do = do.contiguous()
+    tensor_cores = q.dtype == k.dtype == torch.bfloat16
+    if do.numel() and ((do.shape[-1] > 1 and do.stride(-1) != 1)
+                       or (tensor_cores and not _rows_aligned(do))):
+        do = do.clone(memory_format=torch.contiguous_format)
     for t, name, shape in ((q, "q", (B, Hq, Lq, D)), (k, "k", (B, Hkv, Lk, D)),
                            (v, "v", (B, Hkv, Lk, D)), (o, "o", (B, Hq, Lq, D)),
                            (do, "grad_output", (B, Hq, Lq, D))):
         _check(t, name, shape, dev)
+        if tensor_cores and t.numel() and not _rows_aligned(t):
+            raise ValueError(f"{name}: bf16 rows must start on 16-byte boundaries, "
+                             f"strides {t.stride()} at {t.data_ptr():#x}")
     if v.dtype != k.dtype:
         raise ValueError(f"k is {k.dtype} but v is {v.dtype}")
     if o.dtype != q.dtype or do.dtype != q.dtype:
@@ -182,7 +232,12 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0)
         return dq, dk.zero_(), dv.zero_()
     if Lk == 0:
         return dq.zero_(), dk, dv
-    stats = torch.empty((2, B, Hq, Lq), dtype=torch.float32, device=dev)
+    # padded to whole 64-row tiles: each tile's run of statistics is 16-byte aligned
+    stats = torch.empty((2, B, Hq, -(-Lq // 64) * 64), dtype=torch.float32, device=dev)
+    splits = (dkdv_splits(Hq, Hkv, Lq, Lk, bool(causal), int(window), DKDV_WALK)
+              if tensor_cores else 1)
+    part = (torch.empty((2, splits, B, Hkv, Lk, D), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
     strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
                                          for i in range(3)))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -192,7 +247,8 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0)
                                stats[0].data_ptr(), stats[1].data_ptr(),
                                ctypes.addressof(strides), B, Hq, Hkv, Lq, Lk, D,
                                int(bool(causal)), int(window), _DTYPES[q.dtype],
-                               _DTYPES[k.dtype], stream)
+                               _DTYPES[k.dtype], splits,
+                               None if part is None else part.data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
     build.count_launch(flash_attention_bwd)

@@ -145,7 +145,10 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors():
 
 
 #: the card's sweep: every head dim in both dtypes, a window, whisper's
-#: cross shape (non-causal, Lq < Lk), ragged Lq < Lk, rows with no key
+#: cross shape (non-causal, Lq < Lk), ragged Lq < Lk, rows with no key;
+#: then the bf16 (tensor-core) route's edges: a window that cuts inside a
+#: tile, non-causal Lq < Lk, rows with no key, tinyllama's group of 8 over
+#: many tiles, and D 96 and 128 with a window
 GPU_CASES = [
     (2, 8, 2, 200, 200, D, True, 0, dt)
     for D in (32, 64, 96, 128) for dt in (torch.float32, torch.bfloat16)
@@ -154,6 +157,13 @@ GPU_CASES = [
     (1, 12, 12, 104, 375, 64, False, 0, torch.float32),
     (2, 4, 2, 37, 101, 64, True, 0, torch.bfloat16),
     (1, 8, 4, 90, 40, 64, True, 0, torch.float32),
+] + [
+    (1, 5, 1, 300, 300, 64, True, 40, torch.bfloat16),
+    (1, 12, 12, 104, 375, 64, False, 0, torch.bfloat16),
+    (1, 8, 4, 90, 40, 64, True, 0, torch.bfloat16),
+    (1, 32, 4, 1024, 1024, 64, True, 0, torch.bfloat16),
+    (1, 8, 2, 300, 300, 96, True, 100, torch.bfloat16),
+    (1, 8, 2, 300, 300, 128, True, 100, torch.bfloat16),
 ]
 
 
@@ -193,3 +203,39 @@ def test_cuda_backward_kernel_matches_twin(cuda, case):
     assert FA.flash_attention_bwd.launches == n + 1
     for leaf, g in zip(leaves, got):
         assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c in GPU_CASES
+                                  if c[-1] == torch.bfloat16 and c[1] > c[2]])
+def test_cuda_backward_group_splits_match_twin(cuda, monkeypatch, case):
+    """Every KV head's group cut one query head a block (``DKDV_WALK`` 1):
+    the partial dK and dV, summed by ``flash_bwd_dkdv_sum``, match the
+    twin, and two launches are bit-equal."""
+    monkeypatch.setattr(FA, "DKDV_WALK", 1)
+    B, Hq, Hkv, Lq, Lk, D, causal, window, dt = case
+    q, k, v, do = (torch.from_numpy(x).to(cuda, dt)
+                   for x in _inputs(17, B, Hq, Hkv, Lq, Lk, D))
+    o = FA.flash_attention(q, k, v, causal=causal, window=window)
+    got = FA.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    again = FA.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel(g.float().cpu(), w.float().cpu()) <= CARD_TOL[dt]
+
+
+@pytest.mark.gpu
+def test_cuda_backward_bf16_rows_must_be_aligned(cuda):
+    """The tensor-core route stages rows by 16-byte copies: a bf16 q whose
+    rows start off a 16-byte boundary is refused; such a gradient ``do`` is
+    copied and gives the aligned launch's bits."""
+    q, k, v, do = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                   for x in _inputs(13, 1, 4, 2, 64, 64, 32))
+    o = FA.flash_attention(q, k, v)
+    shifted = lambda x: torch.cat([x.flatten(), x.flatten()[:1]])[1:].view_as(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention_bwd(shifted(q), k, v, o, do)
+    got = FA.flash_attention_bwd(q, k, v, o, shifted(do).copy_(do))
+    for g, w in zip(got, FA.flash_attention_bwd(q, k, v, o, do)):
+        assert torch.equal(g, w)
