@@ -4,7 +4,8 @@ and column-sharded over a device mesh), its serving drivers, its legacy
 query API and the paper's augmentation example, its LM
 serving paths (dense, hybrid SSM, encoder–decoder, MoE, RWKV6) and LM
 training (the attention's backward kernel, tinyllama-1.1b trained at full
-size), on one CUDA card.
+size, and resumed from a checkpoint under the training driver's
+supervisor), on one CUDA card.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports only
@@ -183,8 +184,12 @@ fatal on failure (exit code 1, no result line):
                 ids apart); (d) `query()` on the index sharded over a
                 4-shard mesh equals one device bit for bit; (e) the
                 augmentation example (`repro_torch.train_augmented`) on the
-                card finds both drivers and cuts the RMSE below 0.6×. The
-                sketch join, rank_moments, qn_correlation,
+                card finds both drivers and cuts the RMSE below 0.6×; (f)
+                its training half (`short_lm_training`: the smoke tinyllama,
+                30 steps of 4 × 64 tokens through `launch.train`) gives 30
+                finite losses and launches flash_attention 2 × 2 and its
+                backward 2 times a step (those counts join the ``kernels``
+                line). The sketch join, rank_moments, qn_correlation,
                 containment_hits and hash_build must have launched.
   11. flash_attention — the kernel against its twin (2e-3 with a float32
                 output, 2e-2 with bfloat16: the reference sweep's
@@ -300,6 +305,24 @@ fatal on failure (exit code 1, no result line):
                 p50/p99 (CUDA events, steps 5–30), tokens/s, peak memory,
                 one step's card ms in products, attention forward and
                 backward, optimizer and the rest (``torch.profiler``).
+  15. train_loop — the same model and 4 × 2048 tokens per step (from
+                ``lm_batch`` and SEED) through the training driver
+                (`launch.train.train_loop`, default AdamW), with every
+                launch count at 0: (a) 6 steps uninterrupted; (b)
+                `fault.run_with_restart` over 6 steps checkpointing every 3
+                into a temporary directory (its free bytes printed first;
+                under 2.2 × a state's 13.2 GB the phase fails), a failure
+                injected after step 4 on the first call only. Checks: one
+                restart, resumed at step 3; steps 3 and 6 committed; the
+                resumed losses and the final state (parameters, both
+                moments, both steps) equal to (a)'s by (vi)'s rule; every
+                loss finite; the failed run's state released before the
+                resumed run restores; flash_attention launched 14 × 2 × 22
+                × 2 = 1232 times and its backward 616 (joining the
+                ``kernels`` line). The line: each save's and the restore's
+                seconds, the checkpoint's bytes, the free bytes, step ms
+                p50 by the host clock, the straggler monitor's flags, the
+                peak allocated bytes.
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
@@ -326,6 +349,8 @@ capacity and dropped slots, rwkv6's with the time mix's and WKV's ms),
 an ``attention_bwd`` summary line, a ``train`` JSON line (the 30 losses and
 gradient norms, step ms p50/p99, tokens/s, peak memory, launches a step,
 checks (iv)–(vi), a one-step card profile),
+a ``train_loop`` JSON line (save and restore seconds, checkpoint and free
+bytes, host step ms, restarts, bit-equality, launches),
 a ``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -447,6 +472,11 @@ SERVE_ARGS = ["--tables", "2000", "--queries", "200", "--batch", "32"]
 LEGACY_QUERIES = 32
 LEGACY_SINGLE = 8
 LEGACY_KERNELS = SCAN_KERNELS + ("containment_hits", "hash_build")
+#: the example's training half (`train_augmented.short_lm_training`): its
+#: steps, each launching both attention kernels once a layer (and the
+#: forward once more in the recomputation)
+SHORT_STEPS = 30
+LM_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
 #: the LM phase: the config served at full width, prompts × prompt tokens
 #: and greedy steps (2016 + 32 = tinyllama's published 2048-token
 #: context), and the card-vs-CPU check's layers, tokens and steps
@@ -507,6 +537,12 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=5)
 #: check (vi): steps of each run
 TRAIN_CUT = (2, 2, 256)
 TRAIN_RESTART_STEPS = 3
+#: the train_loop phase: the same model and tokens through the training
+#: driver, LOOP_STEPS steps, a checkpoint every LOOP_EVERY, a failure after
+#: step LOOP_FAIL_AT; the checkpoint directory needs LOOP_DISK_SHARE × a
+#: state's bytes free (two committed checkpoints at once)
+LOOP_STEPS, LOOP_EVERY, LOOP_FAIL_AT = 6, 3, 4
+LOOP_DISK_SHARE = 2.2
 #: (vi) where a library op of the step is not deterministic: the share of
 #: the smallest step's lr that two runs may differ by
 RESTART_SHARE = 0.1
@@ -2090,8 +2126,8 @@ def phase_legacy(index, groups, keys, vals, best, dev):
     queries against their rows of `Server.query_batch`, (b) the batched
     `make_*_query_fn` builders against `Server`, (c) `QueryServer` and
     `LiveQueryServer` against `Server`, (d) `query()` over a 4-shard mesh
-    against one device, (e) the augmentation example. Returns the phase's
-    launches."""
+    against one device, (e) the augmentation example, (f) its training
+    half. Returns the phase's launches."""
     mesh1 = (dev,)
     qk, qv, qb = keys[:LEGACY_QUERIES], vals[:LEGACY_QUERIES], best[:LEGACY_QUERIES]
     sk = SV.build_query_sketches(qk, qv, n=N, device=dev)
@@ -2216,6 +2252,20 @@ def phase_legacy(index, groups, keys, vals, best, dev):
         fail(f"legacy train_augmented: {e or 'an assert failed'}")
     line["augment"] = dict(picked=picked, r_hat=[float(x) for x in r_hat],
                            rmse=[r0, r1], seconds=time.perf_counter() - t0)
+    # (f) its training half: the smoke tinyllama through the train loop
+    t0 = time.perf_counter()
+    before = ops.launches()
+    losses = train_augmented.short_lm_training(dev)
+    short = {k: ops.launches()[k] - before[k] for k in LM_TRAIN_KERNELS}
+    L = len(TT.layer_windows(LMR.get_smoke_config("tinyllama-1.1b")))
+    want = {"flash_attention": SHORT_STEPS * 2 * L, "flash_attention_bwd": SHORT_STEPS * L}
+    if len(losses) != SHORT_STEPS or not np.isfinite(losses).all():
+        fail(f"legacy short_lm_training: {len(losses)} losses, want {SHORT_STEPS} finite: "
+             f"{losses}")
+    if short != want:
+        fail(f"legacy short_lm_training: launches {short}, want {want}")
+    line["short_lm_training"] = dict(losses=losses, launches=short,
+                                     seconds=time.perf_counter() - t0)
     launches = ops.launches()
     missing = [k for k in LEGACY_KERNELS if not launches[k]]
     if missing:
@@ -2235,8 +2285,10 @@ def phase_legacy(index, groups, keys, vals, best, dev):
         f"{len(surv)} survivors → make_pruned_query_fn at rung {M}, "
         f"make_topm_query_fn == Server; QueryServer and LiveQueryServer "
         f"({line['live_segments']} segments) off/safe == Server; train_augmented "
-        f"found {picked}, RMSE {r0:.3f} → {r1:.3f}")
-    return {k: v for k, v in launches.items() if k in LEGACY_KERNELS}
+        f"found {picked}, RMSE {r0:.3f} → {r1:.3f}; short_lm_training: {SHORT_STEPS} "
+        f"finite losses, {losses[0]:.3f} → {losses[-1]:.3f}, {short['flash_attention']} "
+        f"flash_attention and {short['flash_attention_bwd']} flash_attention_bwd launches")
+    return {k: v for k, v in launches.items() if k in LEGACY_KERNELS + LM_TRAIN_KERNELS}
 
 
 # ----------------------------------------------------------------------------
@@ -3217,6 +3269,187 @@ def phase_train(dev):
     return launches
 
 
+@contextlib.contextmanager
+def _timing(module, names, into):
+    """Time every call of ``module.<name>`` for each of ``names`` (host
+    seconds, appended to ``into[name]``) inside the block."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            into[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    for n in names:
+        setattr(module, n, wrap(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _state_trees(st):
+    return [st.params, st.opt.mu, st.opt.nu]
+
+
+def phase_train_loop(dev):
+    """tinyllama-1.1b at full width and depth through the training driver
+    (`launch.train.train_loop`): (a) an uninterrupted run of LOOP_STEPS
+    steps; (b) `fault.run_with_restart` over the same run checkpointing
+    every LOOP_EVERY steps into a temporary directory, a failure injected
+    after step LOOP_FAIL_AT on the first call only. Checks: one restart,
+    resumed at LOOP_EVERY, checkpoints committed at LOOP_EVERY and
+    LOOP_STEPS, the resumed losses equal to (a)'s, the final state equal to
+    (a)'s by check (vi)'s rule, every loss finite, the failed run's state
+    released before the resumed run restores, and the attention kernels
+    launched on every step. Prints the ``train_loop`` line; returns the
+    launches."""
+    # imported here: ``--speed`` runs this script's other phases against a
+    # parent checkout that may not have the driver
+    from repro_torch.launch import train as LT
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import fault as FT
+
+    cfg, B, S, n_mb = TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB
+    L = len(TT.layer_windows(cfg))
+    kw = dict(smoke=False, batch=B, seq=S, microbatches=n_mb, seed=SEED, log_every=1,
+              device=dev)
+    monitors, io = [], {"save": [], "restore": []}
+
+    class Monitor(FT.StragglerMonitor):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            monitors.append(self)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    saved_monitor, FT.StragglerMonitor = FT.StragglerMonitor, Monitor
+    try:
+        with _timing(CK, ("save", "restore"), io):
+            t0 = time.perf_counter()
+            want, want_losses = LT.train_loop(cfg.name, steps=LOOP_STEPS, ckpt_dir=None, **kw)
+            torch.cuda.synchronize()
+            t_a = time.perf_counter() - t0
+            state_bytes = sum(t.numel() * t.element_size()
+                              for tree in _state_trees(want) for t in OPT.tree_leaves(tree))
+            tmp = tempfile.mkdtemp(prefix="train_loop-")
+            try:
+                free = shutil.disk_usage(tmp).free
+                say(f"train_loop: checkpoints in {tmp}: {free} bytes free, a state "
+                    f"{state_bytes} bytes")
+                if free < LOOP_DISK_SHARE * state_bytes:
+                    fail(f"train_loop: {free} bytes free in {tmp}, under {LOOP_DISK_SHARE} × "
+                         f"the state's {state_bytes} (two committed checkpoints and one "
+                         f"being written)")
+                finals, losses, resumes, alloc = [], [], [], []
+
+                def make_loop(resume_step):
+                    resumes.append(resume_step)
+                    alloc.append(torch.cuda.memory_allocated())
+                    st, ls = LT.train_loop(
+                        cfg.name, steps=LOOP_STEPS, ckpt_dir=tmp, ckpt_every=LOOP_EVERY,
+                        fail_at_step=LOOP_FAIL_AT if (resume_step or 0) == 0 else None, **kw)
+                    finals.append(st)
+                    losses.append(ls)
+                    return LOOP_STEPS
+
+                t0 = time.perf_counter()
+                FT.run_with_restart(make_loop, lambda: CK.latest_step(tmp), max_restarts=1,
+                                    backoff_s=0.1)
+                torch.cuda.synchronize()
+                t_b = time.perf_counter() - t0
+                committed = sorted(os.listdir(tmp))
+                last = os.path.join(tmp, f"step_{LOOP_STEPS:08d}")
+                ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                                 for d, _, fs in os.walk(last) for f in fs)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        FT.StragglerMonitor = saved_monitor
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    got = finals[-1]
+    if resumes != [None, LOOP_EVERY]:
+        fail(f"train_loop: the supervisor called the loop with resume steps {resumes}, "
+             f"want [None, {LOOP_EVERY}] (one restart, from step {LOOP_EVERY})")
+    want_dirs = [f"step_{s:08d}" for s in (LOOP_EVERY, LOOP_STEPS)]
+    if committed != want_dirs:
+        fail(f"train_loop: the checkpoint directory holds {committed}, want {want_dirs}")
+    everything = want_losses + [x for ls in losses for x in ls]
+    if not np.isfinite(everything).all():
+        fail(f"train_loop: a non-finite loss: {want_losses} {losses}")
+    # the failed run's state is gone before the resumed run restores one:
+    # then only (a)'s final state is allocated at both calls' start
+    if alloc[1] > alloc[0] + state_bytes // 2:
+        fail(f"train_loop: {alloc[1]} bytes allocated when the resumed run started, "
+             f"{alloc[0]} when the first did: the failed run's state was not released")
+    if got.step != LOOP_STEPS or got.opt.step != LOOP_STEPS:
+        fail(f"train_loop: the resumed run ended at step {got.step} / {got.opt.step}")
+    # (vi)'s rule: bit-equality unless a library op of the step is not
+    # deterministic on this card, then RESTART_SHARE of the smallest lr
+    nondet = _nondeterministic_ops(dev, B // n_mb, S, cfg)
+    pairs = [(a, b) for ta, tb in zip(_state_trees(got), _state_trees(want))
+             for a, b in zip(OPT.tree_leaves(ta), OPT.tree_leaves(tb))]
+    max_diff = max(float((a - b).abs().max()) for a, b in pairs)
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    del pairs
+    limit = 0.0
+    if nondet:
+        limit = RESTART_SHARE * min(float(OPT.schedule(OPT.AdamWConfig(), s))
+                                    for s in range(1, LOOP_STEPS + 1))
+    if not (bit_equal if not nondet else max_diff <= limit):
+        fail(f"train_loop: the resumed run's final state differs from the uninterrupted "
+             f"run's by {max_diff} (" + (f"limit {limit}: ops {nondet} are not deterministic)"
+                                        if nondet else "bit-equality required)"))
+    resumed = want_losses[LOOP_EVERY:]
+    loss_diff = max(abs(x - y) for x, y in zip(losses[-1], resumed))
+    if len(losses[-1]) != len(resumed) or (loss_diff != 0.0 if not nondet
+                                           else loss_diff > TRAIN_TOL * max(resumed)):
+        fail(f"train_loop: the resumed losses {losses[-1]} differ from the uninterrupted "
+             f"run's {resumed}")
+    steps_run = LOOP_STEPS + (LOOP_FAIL_AT + 1) + (LOOP_STEPS - LOOP_EVERY)
+    want_launches = {"flash_attention": steps_run * 2 * L * n_mb,
+                     "flash_attention_bwd": steps_run * L * n_mb}
+    for name, n in want_launches.items():
+        if launches[name] != n:
+            fail(f"train_loop: {name} launched {launches[name]} times in {steps_run} steps, "
+                 f"want {n}")
+    del finals, got, want
+    torch.cuda.empty_cache()
+    host_ms = [1e3 * t for m in monitors for t in m.times]
+    line = dict(
+        arch=cfg.name, layers=L, d_model=cfg.d_model, batch=B, seq=S, microbatches=n_mb,
+        steps=LOOP_STEPS, ckpt_every=LOOP_EVERY, fail_at_step=LOOP_FAIL_AT,
+        steps_run=steps_run, uninterrupted_s=t_a, supervised_s=t_b,
+        save_s=io["save"], restore_s=io["restore"], state_bytes=state_bytes,
+        ckpt_bytes=ckpt_bytes, free_bytes=free, step_ms_p50_host=float(np.percentile(host_ms, 50)),
+        step_ms_host=host_ms, restarts=len(resumes) - 1, resumed_from=resumes[-1],
+        committed=committed, losses_uninterrupted=want_losses, losses_calls=losses,
+        bit_equal=bit_equal, max_abs_diff=max_diff, loss_max_abs_diff=loss_diff,
+        restart_limit=limit, nondeterministic_ops=nondet,
+        straggler_flagged=[m.flagged for m in monitors],
+        straggler_samples=[len(m.times) for m in monitors],
+        alloc_at_loop_start=alloc, peak_alloc_bytes=peak,
+        launches={k: launches[k] for k in want_launches})
+    say("train_loop " + json.dumps(line))
+    say(f"train_loop: {cfg.name} ({L} layers, d {cfg.d_model}), {B} × {S} tokens in "
+        f"{n_mb} microbatches: {LOOP_STEPS} steps uninterrupted == {LOOP_STEPS} steps "
+        f"under run_with_restart (failure after step {LOOP_FAIL_AT}, 1 restart, resumed "
+        f"from step {resumes[-1]}, {committed} committed): bit-equal {bit_equal}, max |diff| "
+        f"{max_diff}; saves {', '.join(f'{x:.1f}' for x in io['save'])} s, restore "
+        f"{io['restore'][0]:.1f} s of {ckpt_bytes} bytes; step {line['step_ms_p50_host']:.1f} "
+        f"ms p50 (host clock); peak {peak / 1e9:.1f} GB; {want_launches['flash_attention']} "
+        f"flash_attention and {want_launches['flash_attention_bwd']} flash_attention_bwd "
+        f"launches")
+    return launches
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3398,13 +3631,14 @@ def main(argv) -> None:
     # the sharded path's launches join each query kernel's and hash_build's
     for k, v in timed("sharded", phase_sharded, index, groups, dev).items():
         launches[k] = launches.get(k, 0) + v
-    # so do the legacy API's and the augmentation example's
+    # so do the legacy API's and the augmentation example's (its training
+    # half's attention launches start the two attention kernels' counts)
     for k, v in timed("legacy", phase_legacy, index, groups, keys, vals, best,
                       dev).items():
         launches[k] = launches.get(k, 0) + v
     rows.update(timed("flash_attention", phase_flash, dev))
-    # flash_attention's launches: the sum over the six LM paths
-    launches["flash_attention"] = sum(
+    # flash_attention's launches: the six LM paths' join the example's
+    launches["flash_attention"] += sum(
         timed(name, fn, dev)["flash_attention"]
         for name, fn in (("lm", phase_lm), ("lm_hybrid", phase_lm_hybrid),
                          ("lm_encdec", phase_lm_encdec), ("lm_moe", phase_lm_moe),
@@ -3415,10 +3649,11 @@ def main(argv) -> None:
     if len(sass) != len(BWD_TC_KERNELS) * len(FA.HEAD_DIMS) or not all(
             all(c.values()) for c in sass.values()):
         fail(f"flash_attention_bwd: the bf16 kernels' SASS lacks {BWD_SASS_OPS}: {sass}")
-    # the training path's launches: its forward's join the LM paths'
-    trained = timed("train", phase_train, dev)
-    launches["flash_attention"] += trained["flash_attention"]
-    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    # the training paths' launches: their forward's join the LM paths'
+    for name, fn in (("train", phase_train), ("train_loop", phase_train_loop)):
+        for k, v in timed(name, fn, dev).items():
+            if k in LM_TRAIN_KERNELS:
+                launches[k] += v
     say("phases " + json.dumps(phases))
 
     kernels = []

@@ -1,1 +1,2 @@
-"""Launchers of the port: the device mesh and the serving driver."""
+"""Launchers of the port: the device mesh, the serving driver and the
+training driver."""

@@ -221,6 +221,16 @@ def _init_tensor(spec: ParamSpec, gen: torch.Generator, dev) -> torch.Tensor:
                        device=dev) * float(std)
 
 
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.float32) -> dict:
+    """``param_specs(cfg)`` as ``dtype`` tensors on the ``meta`` device:
+    every leaf's shape and dtype and no storage, the structure a checkpoint
+    restores into (`repro_torch.train.checkpoint.restore`)."""
+    def walk(tree):
+        return {k: torch.empty(v.shape, dtype=dtype, device="meta")
+                if isinstance(v, ParamSpec) else walk(v) for k, v in tree.items()}
+    return walk(param_specs(cfg))
+
+
 def init_params(cfg: ModelConfig, seed: int, device: D.DeviceLike = None) -> dict:
     """Random parameters of ``cfg`` from ``seed``: normal with std
     scale/√fan_in (embeddings 0.02·scale), zeros and ones as the specs say,

@@ -1,7 +1,8 @@
 """The training step: microbatched, mixed precision, on one device.
 
 The port of ``repro.train.train_step``'s step (`TrainState`,
-`TrainConfig`, `init_state`, `reshape_batch`, `make_train_step`):
+`TrainConfig`, `init_state`, `abstract_state`, `reshape_batch`,
+`make_train_step`):
 
   * parameters and optimizer state in float32;
   * the forward and backward in ``cfg.dtype`` through a cast copy of the
@@ -54,6 +55,20 @@ def init_state(cfg: ModelConfig, seed: int, device: D.DeviceLike = None) -> Trai
     moments, step 0, on ``device`` (the card unless named)."""
     params = MP.init_params(cfg, seed, device)
     return TrainState(params=params, opt=OPT.init(params), step=0)
+
+
+def abstract_state(cfg: ModelConfig) -> TrainState:
+    """A `TrainState` of ``meta`` tensors (shapes and dtypes, no storage):
+    the float32 parameters, ``mu`` and ``nu``, and both steps as int32
+    scalars, the structure `checkpoint.restore` fills (it gives the steps
+    back as host integers)."""
+    params = MP.abstract_params(cfg)
+    step = lambda: torch.empty((), dtype=torch.int32, device="meta")
+    return TrainState(
+        params=params,
+        opt=OPT.AdamWState(mu=MP.abstract_params(cfg), nu=MP.abstract_params(cfg),
+                           step=step()),
+        step=step())
 
 
 def reshape_batch(batch: Dict[str, Any], microbatches: int) -> Dict[str, Any]:

@@ -1,6 +1,5 @@
 """Sketch-driven data augmentation for model training (paper Examples 1–2),
-on the PyTorch port: the discovery half of the JAX package's
-``examples/train_augmented.py``.
+on the PyTorch port: the JAX package's ``examples/train_augmented.py``.
 
   1. a base regression dataset (keyed rows + a target);
   2. 32 candidate feature tables — two drivers of the target, partly
@@ -8,13 +7,14 @@ on the PyTorch port: the discovery half of the JAX package's
   3. one top-k join-correlation query (`engine.query.query`, k = 4, s4)
      finds which tables carry signal for the target;
   4. the discovered columns are joined in and a linear regression is fit
-     with and without them: the RMSE falls.
+     with and without them: the RMSE falls;
+  5. a short LM training run: the smoke tinyllama trains 30 steps through
+     the full train loop (`launch.train.train_loop`).
 
     PYTHONPATH=src python -m repro_torch.train_augmented [--device cpu]
 
-Runs on the CUDA cards (one index shard on each) unless ``--device`` names
-another device. The example's second half, a short LM training run, needs
-the training slice, which the port does not have yet.
+Runs on the CUDA cards (one index shard on each; the training on the
+first) unless ``--device`` names another device.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from repro_torch.data.pipeline import Table, sbn_pair
 from repro_torch.engine import index as IX
 from repro_torch.engine import query as Q
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.train import train_loop
 
 
 def discover_and_augment(device=None):
@@ -84,11 +85,23 @@ def discover_and_augment(device=None):
     return picked, r_hat, r0, r1
 
 
+def short_lm_training(device=None):
+    """The example's second half: the smoke tinyllama trained 30 steps of
+    4 × 64 tokens by `launch.train.train_loop`, no checkpoint → its losses."""
+    print("\ntraining a reduced tinyllama for 30 steps (full train loop):")
+    state, losses = train_loop("tinyllama-1.1b", smoke=True, steps=30, batch=4,
+                               seq=64, ckpt_dir=None, log_every=10, device=device)
+    print(f"loss {losses[0]:.3f} → {losses[-1]:.3f}")
+    return losses
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: every CUDA card)")
-    discover_and_augment(ap.parse_args(argv).device)
+    device = ap.parse_args(argv).device
+    discover_and_augment(device)
+    short_lm_training(device)
 
 
 if __name__ == "__main__":

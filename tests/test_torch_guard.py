@@ -31,7 +31,8 @@ for new in ("core.containment", "engine.candidates", "kernels.containment",
             "configs.qwen15_0_5b", "configs.rwkv6_3b",
             "configs.starcoder2_15b", "configs.tinyllama_1_1b",
             "configs.whisper_small", "train", "train.optimizer",
-            "train.train_step"):
+            "train.train_step", "train.checkpoint", "train.compression",
+            "train.fault", "launch.train"):
     assert "repro_torch." + new in mods, new
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
@@ -77,6 +78,9 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         TSV.Server(live)
     with pytest.raises(RuntimeError, match="CUDA"):
         TL.LiveIndex.load("unused")
+    from repro_torch.launch import train as LT
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LT.train_loop("tinyllama-1.1b", smoke=True, steps=1, batch=2, seq=16, ckpt_dir=None)
 
 
 def test_library_and_scheduler_need_a_device_without_cuda(monkeypatch):
