@@ -276,7 +276,8 @@ fatal on failure (exit code 1, no result line):
                 bfloat16 within 2e-2 of each output's largest magnitude),
                 and two launches bit-equal, at the training path's launch
                 (tinyllama: q [2, 32, 2048, 64] bf16, k/v [2, 4, 2048,
-                64], causal) and a sweep: head dims 32, 64, 96, 128 in
+                64], causal), the mesh replica's launch (q [1, 32, 2048,
+                64]) and a sweep: head dims 32, 64, 96, 128 in
                 both dtypes, window 1024, whisper's cross shape (416
                 queries on 1500 keys, non-causal), ragged Lq < Lk and rows
                 with no key; timed at the training launch (CUDA events and
@@ -323,6 +324,31 @@ fatal on failure (exit code 1, no result line):
                 seconds, the checkpoint's bytes, the free bytes, step ms
                 p50 by the host clock, the straggler monitor's flags, the
                 peak allocated bytes.
+  16. train_mesh — the same model sharded over a 2 × 2 ("data", "model")
+                mesh of the card (`launch.mesh.make_mesh`: four mesh
+                devices on one H100, one queue; ZeRO-3 state by
+                `train_step.state_shardings`), the memorisable 4 × 2048
+                batch in 2 microbatches, 2 data replicas of one row each:
+                (i) at 2 layers in float32, one `make_train_step(mesh=)`
+                step against the one-device step (loss within 2e-5
+                relative, gradient norm 1e-5, `tests/test_torch_train.py`'s
+                tolerances) and `accumulate_grads_mesh` against
+                `accumulate_grads` (1e-3 of each leaf's largest entry), the
+                mesh step run twice bit-equal; (ii) at full depth in bf16,
+                3 one-device steps, that state freed (checked by the bytes
+                allocated), then 3 mesh steps with every launch count at
+                0: each loss finite and within 1e-2 of the one-device
+                run's, every replicated copy bit-identical after each step,
+                flash_attention launched 2 × 22 × 2 × 2 = 176 times a step
+                and its backward 88 (joining the ``kernels`` line); (iii)
+                the sharded state saved (13.2 GB) and restored with
+                ``shardings=`` onto a (4, 1) mesh and with ``device=`` onto
+                the card: each, gathered, bit-equal to the saved state.
+                The line: step ms p50 (CUDA events), tokens/s, peak
+                memory, one step's card ms in gathers, gradient reduction,
+                products, attention forward and backward, AdamW and the
+                rest (``torch.profiler``), launches, save and restore
+                seconds, the checks' largest differences.
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
@@ -350,7 +376,9 @@ an ``attention_bwd`` summary line, a ``train`` JSON line (the 30 losses and
 gradient norms, step ms p50/p99, tokens/s, peak memory, launches a step,
 checks (iv)–(vi), a one-step card profile),
 a ``train_loop`` JSON line (save and restore seconds, checkpoint and free
-bytes, host step ms, restarts, bit-equality, launches),
+bytes, host step ms, restarts, bit-equality, launches), a ``train_mesh``
+JSON line (step ms, tokens/s, peak memory, a one-step card profile,
+launches, save and restore seconds, checks (i)–(iii)),
 a ``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -543,6 +571,17 @@ TRAIN_RESTART_STEPS = 3
 #: state's bytes free (two committed checkpoints at once)
 LOOP_STEPS, LOOP_EVERY, LOOP_FAIL_AT = 6, 3, 4
 LOOP_DISK_SHARE = 2.2
+#: the train_mesh phase: TRAIN_CONFIG's state sharded over a MESH_SHAPE mesh
+#: of MESH_AXES on the card, the train phase's batch; (i) one step at
+#: MESH_CUT layers in float32; (ii) MESH_STEPS steps at full depth; (iii)
+#: the saved state restored onto MESH_ELASTIC and onto one device
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_ELASTIC = ((4, 1), ("data", "model"))
+MESH_STEPS, MESH_CUT = 3, 2
+#: (i): tests/test_torch_train.py:41's loss and gradient-norm tolerances
+MESH_LOSS_TOL, MESH_NORM_TOL = 2e-5, 1e-5
+#: (ii): each bf16 loss within this share of the one-device run's
+MESH_BF16_TOL = 1e-2
 #: (vi) where a library op of the step is not deterministic: the share of
 #: the smallest step's lr that two runs may differ by
 RESTART_SHARE = 0.1
@@ -2914,12 +2953,16 @@ def _bwd_cases():
     c = TRAIN_CONFIG
     train = ("train", (TRAIN_BATCH // TRAIN_MB, c.num_heads, c.num_kv_heads, TRAIN_SEQ,
                        TRAIN_SEQ, c.head_dim), True, 0, bf16)
+    # the mesh phase's launch: a microbatch's rows over MESH_SHAPE's data axis
+    replica = ("train mesh replica", (TRAIN_BATCH // TRAIN_MB // MESH_SHAPE[0], c.num_heads,
+                                      c.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ, c.head_dim),
+               True, 0, bf16)
     sweep = [(f"D {D} {str(dt)[6:]}", (2, 8, 2, 384, 384, D), True, 0, dt)
              for D in FA.HEAD_DIMS for dt in (f32, bf16)]
     # the window, cross and no-key shapes in both dtypes: bf16 takes the
     # tensor-core kernels, float32 the CUDA-core ones
     window, cross = (1, 25, 5, 2048, 2048, 64), (2, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64)
-    return [train] + sweep + [
+    return [train, replica] + sweep + [
         ("window 1024", window, True, 1024, f32),
         ("window 1024 bf16", window, True, 1024, bf16),
         ("whisper cross", cross, False, 0, f32),
@@ -3010,7 +3053,8 @@ def phase_attention_bwd(dev):
     for e, ln in _ptxas("flash_attention_bwd"):
         row["ptxas"][e] = f"{row['ptxas'][e]}; {ln}" if e in row["ptxas"] else ln
     row["sass"] = _sass_counts("flash_attention_bwd", BWD_TC_KERNELS, BWD_SASS_OPS)
-    say(f"attention_bwd: {len(errs)} shapes (tinyllama's training launch, D 32/64/96/128 "
+    say(f"attention_bwd: {len(errs)} shapes (tinyllama's training launch and its mesh "
+        f"replica's, D 32/64/96/128 "
         f"in f32 and bf16; window 1024, whisper's cross shape and rows with no key in f32 "
         f"and bf16; ragged Lq < Lk) — each matches its twin (largest error "
         f"{max(errs.values()):.3g} of the largest output) and is bit-equal across two "
@@ -3035,19 +3079,25 @@ def _memorisable_batch(B, S, n_mb, dev):
             TS.reshape_batch({"tokens": toks, "labels": labels}, n_mb).items()}
 
 
-def _train_split(step):
+def _train_split(step, spans=None):
     """One call of ``step`` under the profiler: card ms in matrix products,
-    the attention forward, its backward, the optimizer (the kernels
-    launched inside `optimizer.apply`) and the rest, and the wall ms."""
+    the attention forward, its backward, each of ``spans`` ({name: (module,
+    function)}: the kernels launched inside each call of that function;
+    by default the optimizer, `optimizer.apply`) and the rest, and the wall
+    ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    saved = OPT.apply
+    spans = spans or {"optimizer": (OPT, "apply")}
+    saved = {name: getattr(mod, fn) for name, (mod, fn) in spans.items()}
 
-    def apply(*args, **kw):
-        with record_function("adamw_apply"):
-            return saved(*args, **kw)
+    def wrap(name):
+        def call(*args, **kw):
+            with record_function(f"span_{name}"):
+                return saved[name](*args, **kw)
+        return call
 
-    OPT.apply = apply
+    for name, (mod, fn) in spans.items():
+        setattr(mod, fn, wrap(name))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3055,12 +3105,14 @@ def _train_split(step):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        OPT.apply = saved
-    split = dict(products=0.0, attention_fwd=0.0, attention_bwd=0.0, optimizer=0.0, rest=0.0)
+        for name, (mod, fn) in spans.items():
+            setattr(mod, fn, saved[name])
+    split = dict(products=0.0, attention_fwd=0.0, attention_bwd=0.0, rest=0.0,
+                 **dict.fromkeys(spans, 0.0))
     by_name = {}
     for e in prof.events():
-        if e.name == "adamw_apply" and e.device_type == DeviceType.CPU:
-            split["optimizer"] += e.device_time_total / 1e3
+        if e.name.startswith("span_") and e.device_type == DeviceType.CPU:
+            split[e.name[5:]] += e.device_time_total / 1e3
         if e.device_type != DeviceType.CUDA:
             continue
         key = ("attention_fwd" if FLASH_KERNEL in e.name else
@@ -3069,7 +3121,7 @@ def _train_split(step):
                else "rest")
         split[key] += e.device_time_total / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    split["rest"] -= split["optimizer"]
+    split["rest"] -= sum(split[name] for name in spans)
     split["wall"] = 1e3 * wall
     split["top_kernels"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return split
@@ -3450,6 +3502,173 @@ def phase_train_loop(dev):
     return launches
 
 
+def phase_train_mesh(dev):
+    """tinyllama-1.1b's training sharded over a MESH_SHAPE mesh of the card
+    through `make_train_step(mesh=...)`, with checks (i)–(iii); prints the
+    ``train_mesh`` line and returns the launches of (ii)'s mesh steps."""
+    # imported here: ``--speed`` runs this script's other phases against a
+    # parent checkout that may not have the sharding helpers
+    from repro_torch.launch import mesh as MM
+    from repro_torch.sharding import array as SA
+    from repro_torch.train import checkpoint as CK
+
+    cfg, B, S, n_mb = TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB
+    L = len(TT.layer_windows(cfg))
+    tcfg = TS.TrainConfig(microbatches=n_mb, opt=OPT.AdamWConfig(**TRAIN_OPT))
+    batch = _memorisable_batch(B, S, n_mb, dev)
+    mesh = MM.make_mesh(MESH_SHAPE, MESH_AXES)
+    n_rep = len(TS.replicas(cfg, mesh, batch))
+    torch.cuda.empty_cache()
+
+    # (i) at MESH_CUT layers in float32: one step and the accumulated
+    # gradients against one device; the mesh step twice, bit-equal
+    cfg2 = dataclasses.replace(cfg, num_layers=MESH_CUT, dtype="float32")
+    sh2 = TS.state_shardings(cfg2, mesh)
+    p2 = LMP.init_params(cfg2, SEED, device=dev)
+    loss_1, g_1 = TS.accumulate_grads(cfg2, p2, batch)
+    loss_m, g_m = TS.accumulate_grads_mesh(cfg2, SA.device_put(p2, sh2.params), batch, mesh)
+    grad_err = _leaf_rel(OPT.tree_leaves(SA.gather_tree(g_m, dev)), OPT.tree_leaves(g_1))
+    del p2, g_1, g_m
+    _, m1 = TS.make_train_step(cfg2, tcfg)(TS.init_state(cfg2, SEED, device=dev), batch)
+    runs = []
+    for _ in range(2):
+        st, mm = TS.make_train_step(cfg2, tcfg, mesh=mesh)(
+            SA.device_put(TS.init_state(cfg2, SEED, device=dev), sh2), batch)
+        runs.append((st, mm))
+    (a, ma), (b, mb) = runs
+    twice_equal = all(torch.equal(ma[k], mb[k]) for k in ("loss", "grad_norm")) and all(
+        torch.equal(x, y) for ta, tb in zip(SA.leaves(a), SA.leaves(b))
+        for x, y in zip(ta.blocks, tb.blocks))
+    check_i = dict(loss_rel=abs(float(ma["loss"]) - float(m1["loss"])) / float(m1["loss"]),
+                   grad_norm_rel=abs(float(ma["grad_norm"]) - float(m1["grad_norm"]))
+                   / float(m1["grad_norm"]),
+                   accumulated_loss_rel=abs(float(loss_m) - float(loss_1)) / float(loss_1),
+                   grad_rel=grad_err, twice_bit_equal=twice_equal)
+    del runs, a, b, st
+    torch.cuda.empty_cache()
+    if not (check_i["loss_rel"] <= MESH_LOSS_TOL and check_i["accumulated_loss_rel"]
+            <= MESH_LOSS_TOL and check_i["grad_norm_rel"] <= MESH_NORM_TOL
+            and grad_err <= TRAIN_TOL and twice_equal):
+        fail(f"train_mesh (i): at {MESH_CUT} layers in float32 the mesh step differs from one "
+             f"device's: {check_i} (limits: loss {MESH_LOSS_TOL}, norm {MESH_NORM_TOL}, "
+             f"gradients {TRAIN_TOL}, two runs bit-equal)")
+
+    # (ii) full depth in bf16: one device, freed, then the mesh
+    alloc = [torch.cuda.memory_allocated()]
+    state = TS.init_state(cfg, SEED, device=dev)
+    state_bytes = 3 * sum(t.numel() * t.element_size() for t in OPT.tree_leaves(state.params))
+    step = TS.make_train_step(cfg, tcfg)
+    want = []
+    for _ in range(MESH_STEPS):
+        state, m = step(state, batch)
+        want.append(float(m["loss"]))
+    del state, step, m
+    torch.cuda.empty_cache()
+    alloc.append(torch.cuda.memory_allocated())
+    if alloc[1] > alloc[0] + state_bytes // 2:
+        fail(f"train_mesh (ii): {alloc[1]} bytes allocated after the one-device run, {alloc[0]} "
+             f"before it: its state was not released")
+    init = TS.init_state(cfg, SEED, device=dev)
+    state = SA.device_put(init, TS.state_shardings(cfg, mesh))
+    del init
+    torch.cuda.empty_cache()
+    step = TS.make_train_step(cfg, tcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    marks, losses, norms, copies = [], [], [], []
+    for _ in range(MESH_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        marks.append((e0, e1))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        copies.append(all(SA.copies_equal(t) for t in SA.leaves(state)))
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [x.elapsed_time(y) for x, y in marks]
+    rel = [abs(x - w) / abs(w) for x, w in zip(losses, want)]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"train_mesh (ii): a non-finite loss or gradient norm: {losses} {norms}")
+    if not max(rel) <= MESH_BF16_TOL:
+        fail(f"train_mesh (ii): mesh losses {losses} against one device's {want} (limit "
+             f"{MESH_BF16_TOL} relative)")
+    if not all(copies):
+        fail(f"train_mesh (ii): replicated copies differ after steps {copies}")
+    per_step = {"flash_attention": 2 * L * n_mb * n_rep, "flash_attention_bwd": L * n_mb * n_rep}
+    for name, per in per_step.items():
+        if launches[name] != per * MESH_STEPS:
+            fail(f"train_mesh: {name} launched {launches[name]} times in {MESH_STEPS} steps, "
+                 f"expected {per} a step ({L} layers × {n_mb} microbatches × {n_rep} replicas)")
+    out = []
+    split = _train_split(lambda: out.append(step(state, batch)), {
+        "gathers": (TS, "_gather_params"), "reduction": (TS, "_reduce_grad"),
+        "optimizer": (OPT, "apply_sharded")})
+    state = out.pop()[0]
+
+    # (iii) the elastic restore: onto MESH_ELASTIC and onto one device
+    tmp = tempfile.mkdtemp(prefix="train_mesh-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < 1.1 * state_bytes:
+            fail(f"train_mesh: {free} bytes free in {tmp}, under 1.1 × the state's {state_bytes}")
+        t0 = time.perf_counter()
+        CK.save(tmp, state.step, state)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp)
+                         for f in fs)
+        abstract, restore_s, elastic_equal = TS.abstract_state(cfg), {}, {}
+        other = MM.make_mesh(*MESH_ELASTIC)
+        for what, kw in (("mesh " + "x".join(map(str, MESH_ELASTIC[0])),
+                          dict(shardings=TS.state_shardings(cfg, other))),
+                         ("one device", dict(device=dev))):
+            t0 = time.perf_counter()
+            got = CK.restore(tmp, state.step, abstract, **kw)
+            torch.cuda.synchronize()
+            restore_s[what] = time.perf_counter() - t0
+            elastic_equal[what] = all(
+                x == y if isinstance(x, int) else torch.equal(
+                    SA.gather(x, dev) if isinstance(x, SA.ShardedTensor) else x,
+                    SA.gather(y, dev))
+                for (_, x), (_, y) in zip(CK.leaf_items(got), CK.leaf_items(state)))
+            del got
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(elastic_equal.values()):
+        fail(f"train_mesh (iii): a restored state differs from the saved one: {elastic_equal}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    line = dict(
+        arch=cfg.name, layers=L, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+        mesh_devices=[str(d) for d in mesh.devices], replicas=n_rep, batch=B, seq=S,
+        microbatches=n_mb, steps=MESH_STEPS, dtype=cfg.dtype, opt=TRAIN_OPT,
+        check_i=check_i, check_i_layers=MESH_CUT, losses_one_device=want, losses_mesh=losses,
+        grad_norms_mesh=norms, check_ii_loss_rel=rel, copies_bit_identical=copies,
+        alloc_before_after_one_device=alloc, state_bytes=state_bytes,
+        step_ms=step_ms, step_ms_p50=float(np.percentile(step_ms, 50)),
+        tokens_s=B * S / (float(np.percentile(step_ms, 50)) / 1e3), peak_alloc_bytes=peak,
+        launches={k: launches[k] for k in per_step}, launches_per_step=per_step,
+        step_profile_ms=split, save_s=save_s, restore_s=restore_s, ckpt_bytes=ckpt_bytes,
+        free_bytes=free, elastic_bit_equal=elastic_equal)
+    say("train_mesh " + json.dumps(line))
+    say(f"train_mesh: {cfg.name} ({L} layers, d {cfg.d_model}) on a "
+        f"{' × '.join(map(str, MESH_SHAPE))} {MESH_AXES} mesh of one card ({n_rep} replicas): "
+        f"(i) at {MESH_CUT} layers in float32 == one device (loss {check_i['loss_rel']:.3g}, "
+        f"norm {check_i['grad_norm_rel']:.3g}, gradients {grad_err:.3g}), two runs bit-equal; "
+        f"(ii) {MESH_STEPS} bf16 steps within {max(rel):.3g} of one device's losses, copies "
+        f"bit-identical; step {line['step_ms_p50']:.1f} ms p50 ({line['tokens_s']:.0f} "
+        f"tokens/s), peak {peak / 1e9:.1f} GB; {per_step['flash_attention']} flash_attention and "
+        f"{per_step['flash_attention_bwd']} flash_attention_bwd launches a step; (iii) saved in "
+        f"{save_s:.1f} s ({ckpt_bytes} bytes), restored bit-equal: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in restore_s.items()))
+    return launches
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3650,7 +3869,8 @@ def main(argv) -> None:
             all(c.values()) for c in sass.values()):
         fail(f"flash_attention_bwd: the bf16 kernels' SASS lacks {BWD_SASS_OPS}: {sass}")
     # the training paths' launches: their forward's join the LM paths'
-    for name, fn in (("train", phase_train), ("train_loop", phase_train_loop)):
+    for name, fn in (("train", phase_train), ("train_loop", phase_train_loop),
+                     ("train_mesh", phase_train_mesh)):
         for k, v in timed(name, fn, dev).items():
             if k in LM_TRAIN_KERNELS:
                 launches[k] += v

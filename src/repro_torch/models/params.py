@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import rules as shr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,14 +222,27 @@ def _init_tensor(spec: ParamSpec, gen: torch.Generator, dev) -> torch.Tensor:
                        device=dev) * float(std)
 
 
+def _map_specs(fn, tree) -> dict:
+    return {k: fn(v) if isinstance(v, ParamSpec) else _map_specs(fn, v) for k, v in tree.items()}
+
+
+def param_pspecs(cfg: ModelConfig, mesh) -> dict:
+    """Each parameter's `PartitionSpec` on ``mesh`` (named or abstract), by
+    the logical-axis rules (`repro_torch.sharding.rules`)."""
+    return _map_specs(lambda s: shr.logical_to_pspec(s.axes, s.shape, mesh), param_specs(cfg))
+
+
+def param_shardings(cfg: ModelConfig, mesh) -> dict:
+    """Each parameter's `NamedSharding` on ``mesh``."""
+    return _map_specs(lambda s: shr.named_sharding(s.axes, s.shape, mesh), param_specs(cfg))
+
+
 def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.float32) -> dict:
     """``param_specs(cfg)`` as ``dtype`` tensors on the ``meta`` device:
     every leaf's shape and dtype and no storage, the structure a checkpoint
     restores into (`repro_torch.train.checkpoint.restore`)."""
-    def walk(tree):
-        return {k: torch.empty(v.shape, dtype=dtype, device="meta")
-                if isinstance(v, ParamSpec) else walk(v) for k, v in tree.items()}
-    return walk(param_specs(cfg))
+    return _map_specs(lambda v: torch.empty(v.shape, dtype=dtype, device="meta"),
+                      param_specs(cfg))
 
 
 def init_params(cfg: ModelConfig, seed: int, device: D.DeviceLike = None) -> dict:

@@ -206,14 +206,20 @@ def forward_logits(params, cfg: ModelConfig, batch, moe_dense: bool = False) -> 
 # training forward
 # ----------------------------------------------------------------------------
 
-def cross_entropy(logits, labels):
-    """Masked token-mean CE; labels < 0 are ignored."""
+def _ce_sums(logits, labels):
+    """(Σ of the masked token NLLs, the count of labels ≥ 0), float32."""
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.sum(), mask.sum()
+
+
+def cross_entropy(logits, labels):
+    """Masked token-mean CE; labels < 0 are ignored."""
+    nll, cnt = _ce_sums(logits, labels)
+    return nll / cnt.clamp_min(1.0)
 
 
 #: sequence-chunk size for the fused head+CE loss; keeps the [tokens, V]
@@ -295,22 +301,34 @@ def _positions(S: int, dev):
 
 
 def forward_train(params, cfg: ModelConfig, batch, remat_policy: str = "nothing"):
-    """The training loss, a float32 scalar. ``batch``: ``tokens`` [B, S],
-    ``labels`` [B, S] (< 0 ignored) and, for a prefix adapter,
-    ``prefix_embeds`` [B, P, d]; an encoder–decoder takes ``frames`` [B,
-    S_src, d], ``target_tokens`` and ``target_labels`` [B, S] instead (and
-    its layers are recomputed with ``"nothing"``, as the reference's)."""
+    """The training loss, a float32 scalar: the masked token mean of
+    `loss_sums`. ``batch``: ``tokens`` [B, S], ``labels`` [B, S] (< 0
+    ignored) and, for a prefix adapter, ``prefix_embeds`` [B, P, d]; an
+    encoder–decoder takes ``frames`` [B, S_src, d], ``target_tokens`` and
+    ``target_labels`` [B, S] instead (and its layers are recomputed with
+    ``"nothing"``, as the reference's)."""
+    nll, cnt = loss_sums(params, cfg, batch, remat_policy)
+    return nll / cnt.clamp_min(1.0)
+
+
+def label_key(cfg: ModelConfig) -> str:
+    """The batch entry whose entries ≥ 0 the loss counts."""
+    return "target_labels" if cfg.encoder_layers > 0 else "labels"
+
+
+def loss_sums(params, cfg: ModelConfig, batch, remat_policy: str = "nothing"):
+    """(Σ of the token NLLs over the labels ≥ 0, their count), float32:
+    the loss of rows that are part of a larger batch, combined by sums."""
     if cfg.encoder_layers > 0:
-        return _forward_encdec(params, cfg, batch)
+        return _encdec_sums(params, cfg, batch)
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens, batch.get("prefix_embeds"))
     cs = _rope(cfg, _positions(tokens.shape[1], tokens.device))
     x = _train_blocks(x, params["blocks"], cfg, cs, remat_policy=remat_policy)
-    nll, cnt = head_loss_chunked(params, cfg, x, batch["labels"])
-    return nll / cnt.clamp_min(1.0)
+    return head_loss_chunked(params, cfg, x, batch["labels"])
 
 
-def _forward_encdec(params, cfg: ModelConfig, batch):
+def _encdec_sums(params, cfg: ModelConfig, batch):
     frames = batch["frames"]
     S_src, dt = frames.shape[1], _dtype(cfg)
     x = frames.to(dt) + params["enc_pos"][:S_src].to(dt)
@@ -321,7 +339,7 @@ def _forward_encdec(params, cfg: ModelConfig, batch):
     y = embed_tokens(params, cfg, tgt)
     y = _train_blocks(y, params["dec_blocks"], cfg, _rope(cfg, _positions(tgt.shape[1], y.device)),
                       enc_out=enc_out)
-    return cross_entropy(lm_head(params, cfg, y), batch["target_labels"])
+    return _ce_sums(lm_head(params, cfg, y), batch["target_labels"])
 
 
 # ----------------------------------------------------------------------------

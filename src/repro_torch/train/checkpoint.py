@@ -20,7 +20,11 @@ The leaves are named and ordered as the reference names and orders its
 order, each dict's keys sorted), and both step counts are int32 0-d arrays.
 This module builds those strings itself (`leaf_items`). So a checkpoint
 written by either package restores into the other, and for one state the
-two manifests are equal.
+two manifests are equal. A state sharded over a mesh
+(`repro_torch.sharding.array`) is saved a leaf at a time, each gathered to
+the host, into the same files as the gathered state; `restore` with
+``shardings=`` places each leaf on the current mesh, whatever mesh (or
+device) saved it.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as D
+from repro_torch.sharding import array as SA
 from repro_torch.train import optimizer as OPT
 from repro_torch.train.train_step import TrainState
 
@@ -70,12 +75,15 @@ def _crc32(arr: np.ndarray) -> int:
 def _host(path: str, leaf) -> np.ndarray:
     if path in _STEPS:
         return np.asarray(int(leaf), np.int32)
+    if isinstance(leaf, SA.ShardedTensor):
+        return SA.gather(leaf, "cpu").numpy()
     return leaf.detach().cpu().numpy()
 
 
 def save(ckpt_dir: str, step: int, state: TrainState, keep: int = 3) -> str:
-    """Write an atomic checkpoint of ``state`` as ``step``; returns its
-    final path. Keeps the ``keep`` newest committed checkpoints."""
+    """Write an atomic checkpoint of ``state`` (on one device, or sharded)
+    as ``step``; returns its final path. Keeps the ``keep`` newest
+    committed checkpoints."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step:08d}")
     if os.path.exists(tmp):
@@ -124,20 +132,28 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, abstract_state: TrainState,
+def restore(ckpt_dir: str, step: int, abstract_state: TrainState, shardings=None,
             device: D.DeviceLike = None) -> TrainState:
     """Load checkpoint ``step`` into a `TrainState` shaped as
     ``abstract_state`` (`train_step.abstract_state`: meta tensors), each
-    leaf cast to its abstract dtype, on ``device`` (the CUDA card unless it
-    names another). The steps come back as host integers.
+    leaf cast to its abstract dtype: with ``shardings`` (a `TrainState` of
+    `NamedSharding`s, `train_step.state_shardings`) each leaf sharded over
+    its mesh, the elastic path: the mesh that saved it does not matter;
+    else on ``device`` (the CUDA card unless it names another). Passing
+    both raises `ValueError`. The steps come back as host integers.
 
     Raises `FileNotFoundError` without a committed checkpoint, `KeyError`
     for a leaf the checkpoint lacks, `IOError` on a crc mismatch and
-    `ValueError` on a shape mismatch, as the reference does. The
-    reference's ``shardings=`` (each leaf re-sharded over the current
-    mesh) becomes ``device=``: the training mesh layout is not ported.
+    `ValueError` on a shape mismatch, as the reference does.
     """
-    dev = D.resolve(device)
+    if shardings is not None and device is not None:
+        raise ValueError("restore: pass shardings= or device=, not both")
+    if shardings is not None:
+        by_key = dict(leaf_items(shardings))
+        place = lambda key, x: SA.shard(x, by_key[key])
+    else:
+        dev = D.resolve(device)
+        place = lambda key, x: x.to(dev)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, COMMITTED)):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -155,7 +171,7 @@ def restore(ckpt_dir: str, step: int, abstract_state: TrainState,
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs model {tuple(leaf.shape)}")
         loaded[key] = (int(arr) if key in _STEPS
-                       else torch.from_numpy(arr).to(dev, leaf.dtype))
+                       else place(key, torch.from_numpy(arr).to(leaf.dtype)))
 
     def tree(t: dict, prefix: str) -> dict:
         return {k: tree(v, f"{prefix}[{k!r}]") if isinstance(v, dict)

@@ -9,8 +9,8 @@ float32, as the reference computes them on the device) and no step waits
 on the card for them. Unlike the reference, whose arrays are immutable,
 `apply` updates the parameters and moments in place (the reference's step
 donates them): an optimizer step allocates one leaf's temporaries at a
-time, not a copy of the state. The reference's ZeRO sharding is a mesh
-layout; on one device there is nothing to shard.
+time, not a copy of the state. `apply_sharded` is the same step over a
+state sharded on a named mesh (ZeRO-3: each block updated where it lies).
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import array as SA
 
 
 @dataclasses.dataclass
@@ -96,24 +98,63 @@ def clip_by_global_norm(grads: dict, max_norm: float):
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
 
+def _constants(cfg: AdamWConfig, step: int):
+    """(this step's rate, the two bias corrections), float32 on the host."""
+    f32 = np.float32
+    return (schedule(cfg, step), float(f32(1.0) - f32(cfg.b1) ** f32(step)),
+            float(f32(1.0) - f32(cfg.b2) ** f32(step)))
+
+
+def _update(p, g, m, v, cfg: AdamWConfig, lr, b1c: float, b2c: float) -> None:
+    """One AdamW update of a float32 tensor ``p`` and its moments, in place."""
+    m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    v.mul_(cfg.b2).add_(g.square().mul_(1 - cfg.b2))
+    upd = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+    p.sub_(upd.add_(p * cfg.weight_decay).mul_(float(lr)))
+
+
 def apply(params: dict, grads: dict, state: AdamWState, cfg: AdamWConfig):
     """One AdamW step → (params, state, {"grad_norm", "lr"}): the float32
     gradients clipped to ``cfg.grad_clip`` (in place), the moments and the
     parameters updated in place; ``grad_norm`` the norm before clipping (a
     0-dim tensor on the device), ``lr`` this step's rate (numpy float32)."""
-    f32 = np.float32
     leaves = [g if g.dtype == torch.float32 else g.to(torch.float32) for g in tree_leaves(grads)]
     norm = global_norm(leaves)
     torch._foreach_mul_(leaves, _clip_scale(norm, cfg.grad_clip))
     step = state.step + 1
-    lr = schedule(cfg, step)
-    b1c = float(f32(1.0) - f32(cfg.b1) ** f32(step))
-    b2c = float(f32(1.0) - f32(cfg.b2) ** f32(step))
+    lr, b1c, b2c = _constants(cfg, step)
     for p, g, m, v in zip(tree_leaves(params), leaves, tree_leaves(state.mu),
                           tree_leaves(state.nu)):
-        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_(g.square().mul_(1 - cfg.b2))
-        upd = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
-        p.sub_(upd.add_(p * cfg.weight_decay).mul_(float(lr)))
+        _update(p, g, m, v, cfg, lr, b1c, b2c)
+    return params, AdamWState(mu=state.mu, nu=state.nu, step=step), {
+        "grad_norm": norm, "lr": lr}
+
+
+def apply_sharded(params: dict, grads: dict, state: AdamWState, cfg: AdamWConfig):
+    """`apply` over trees of `repro_torch.sharding.array.ShardedTensor`s
+    sharded alike (float32 gradients): the norm is each leaf's Σ g² summed
+    over its distinct blocks (a replicated block once), then the leaves in
+    `apply`'s order, on the mesh's first device; then every block, each
+    replicated copy included, is clipped and updated where it lies, so the
+    copies stay bit-identical."""
+    gl = tree_leaves(grads)
+    dev0 = gl[0].blocks[0].device
+    sq = None
+    for g in gl:
+        s = None
+        for f in SA.first_copies(g.sharding, len(g.shape)):
+            b = g.blocks[f].square().sum().to(dev0)
+            s = b if s is None else s + b
+        sq = s if sq is None else sq + s
+    norm = torch.sqrt(sq)
+    scale = _clip_scale(norm, cfg.grad_clip)
+    blocks = [b for g in gl for b in g.blocks]
+    for dev in {b.device for b in blocks}:
+        torch._foreach_mul_([b for b in blocks if b.device == dev], scale.to(dev))
+    step = state.step + 1
+    lr, b1c, b2c = _constants(cfg, step)
+    for p, g, m, v in zip(tree_leaves(params), gl, tree_leaves(state.mu), tree_leaves(state.nu)):
+        for pb, gb, mb, vb in zip(p.blocks, g.blocks, m.blocks, v.blocks):
+            _update(pb, gb, mb, vb, cfg, lr, b1c, b2c)
     return params, AdamWState(mu=state.mu, nu=state.nu, step=step), {
         "grad_norm": norm, "lr": lr}

@@ -2,10 +2,11 @@
 package's (`repro.train.checkpoint`) on the CPU: the reference's own
 checkpoint tests run on the port (roundtrip, partial writes ignored,
 corruption detected, keep-N, a shape mismatch rejected, resume bit for
-bit), then the on-disk format across the packages: a checkpoint written by
-either restores into the other bit for bit, and the two manifests of one
-state are equal as JSON; `abstract_state` has the reference's leaf paths,
-shapes and dtypes for all ten configs.
+bit; ``shardings=`` or ``device=``), then the on-disk format across the
+packages: a checkpoint written by either restores into the other bit for
+bit, and the two manifests of one state are equal as JSON;
+`abstract_state` has the reference's leaf paths, shapes and dtypes for all
+ten configs.
 
 The state is the ``qwen1.5-0.5b`` smoke state the reference's tests use,
 drawn by the reference from ``PRNGKey(0)`` and converted bit for bit
@@ -157,6 +158,24 @@ def test_restore_needs_a_device_without_cuda(tmp_path, state, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         CK.restore(str(tmp_path), 1, _abstract())
+
+
+def test_restore_takes_shardings_or_device(tmp_path, state):
+    """``shardings=`` places each leaf over its mesh, ``device=`` on one
+    device; both at once raise."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.sharding import array as SA
+
+    CK.save(str(tmp_path), 1, state)
+    sh = TS.state_shardings(R.get_smoke_config(ARCH),
+                            M.make_mesh((2, 2), ("data", "model"), device="cpu"))
+    with pytest.raises(ValueError, match="not both"):
+        CK.restore(str(tmp_path), 1, _abstract(), shardings=sh, device="cpu")
+    got = CK.restore(str(tmp_path), 1, _abstract(), shardings=sh)
+    assert all(isinstance(t, SA.ShardedTensor) for _, t in OPT.tree_items(got.params))
+    _assert_state_equal(SA.gather_tree(got, "cpu"), state)
+    one = CK.restore(str(tmp_path), 1, _abstract(), device="cpu")
+    assert all(isinstance(t, torch.Tensor) for _, t in OPT.tree_items(one.params))
 
 
 # ----------------------------------------------------------------------------

@@ -32,8 +32,13 @@ for new in ("core.containment", "engine.candidates", "kernels.containment",
             "configs.starcoder2_15b", "configs.tinyllama_1_1b",
             "configs.whisper_small", "train", "train.optimizer",
             "train.train_step", "train.checkpoint", "train.compression",
-            "train.fault", "launch.train"):
+            "train.fault", "launch.train", "sharding", "sharding.rules",
+            "sharding.array"):
     assert "repro_torch." + new in mods, new
+from repro_torch.launch import mesh
+for fn in ("NamedMesh", "make_mesh", "make_production_mesh", "make_abstract_mesh",
+           "make_host_mesh", "as_mesh"):
+    assert callable(getattr(mesh, fn)), fn
 assert "jax" not in sys.modules, "jax was imported"
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not bad, bad

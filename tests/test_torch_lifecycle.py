@@ -30,6 +30,7 @@ from repro_torch.engine import ingest as TG
 from repro_torch.engine import lifecycle as TL
 from repro_torch.engine import plans as TPL
 from repro_torch.engine import serve as TSV
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 N = 32          # sketch size: small keeps the 7-agg sweep quick

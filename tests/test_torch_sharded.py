@@ -41,6 +41,7 @@ from repro_torch.engine import lifecycle as TL
 from repro_torch.engine import plans as PL
 from repro_torch.engine import serve as SV
 from repro_torch.launch.mesh import make_host_mesh
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _ROOT = os.path.join(os.path.dirname(__file__), "..")
 C, N = 13, 32

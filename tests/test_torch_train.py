@@ -36,6 +36,7 @@ from repro_torch.configs import registry as R
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.train import optimizer as OPT
 from repro_torch.train import train_step as TS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OPT_TOL = 1e-6
 LOSS_TOL, NORM_TOL, LR_TOL, MOMENT_TOL, PARAM_TOL = 2e-5, 1e-5, 1e-6, 2e-4, 1e-6
@@ -257,7 +258,7 @@ def test_state_conversion_and_mesh():
         np.testing.assert_array_equal(got[path], w)
     assert all(not t.any() for t in OPT.tree_leaves(ps.opt.mu))
     cfg = R.get_smoke_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(TypeError, match="NamedMesh"):
         TS.make_train_step(cfg, TS.TrainConfig(), mesh=object())
     b = {"tokens": np.zeros((8, 5), np.int32)}
     assert TS.reshape_batch(b, 4)["tokens"].shape == (4, 2, 5)

@@ -28,6 +28,7 @@ from repro_torch.launch import train as LT
 from repro_torch.train import checkpoint as CK
 from repro_torch.train import fault as F
 from repro_torch.train import optimizer as OPT
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 LOSS_TOL, PARAM_TOL = 2e-5, 1e-6
@@ -108,7 +109,8 @@ def test_supervised_restart_is_bit_equal(tmp_path):
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH=_SRC)
+    # the child's ops single-threaded too, for the reason `one_torch_thread` gives
+    env = dict(os.environ, PYTHONPATH=_SRC, OMP_NUM_THREADS="1")
     return [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH, "--smoke",
             "--device", "cpu", *args], env
 
