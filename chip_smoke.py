@@ -4,8 +4,9 @@ and column-sharded over a device mesh), its serving drivers, its legacy
 query API and the paper's augmentation example, its LM
 serving paths (dense, hybrid SSM, encoder–decoder, MoE, RWKV6) and LM
 training (the attention's backward kernel, tinyllama-1.1b trained at full
-size, and resumed from a checkpoint under the training driver's
-supervisor), on one CUDA card.
+size, resumed from a checkpoint under the training driver's supervisor
+and sharded over a mesh, and grok-1's MoE layers on a mesh), on one CUDA
+card.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports only
@@ -349,6 +350,28 @@ fatal on failure (exit code 1, no result line):
                 products, attention forward and backward, AdamW and the
                 rest (``torch.profiler``), launches, save and restore
                 seconds, the checks' largest differences.
+  17. train_mesh_moe — grok-1 (hf:xai-org/grok-1) at its published
+                attention, expert and vocab widths (d 6144, 48/8 heads of
+                128, 8 experts top-2, capacity factor 1.25, vocab 131072),
+                2 of 64 layers, d_ff 32768 → 4096 (2.99 B parameters,
+                36 GB of f32 state), on the same mesh, batch and AdamW:
+                (i) at d_ff 1024 in float32, `accumulate_grads_mesh`
+                against `accumulate_grads` and one mesh step against one
+                device's (train_mesh's tolerances), the mesh step twice
+                bit-equal, slots dropped in the batch (capacity 1280 an
+                expert over a microbatch's 4096 tokens), and a naive split
+                (each replica its own capacity, 640, no offsets) more than
+                10 × the loss tolerance from one device's loss; (ii) at
+                the phase's cut in bf16, 3 one-device steps, freed, then 3
+                mesh steps: losses within 1e-2 of one device's, copies
+                bit-identical, 16 and 8 attention launches a step (joining
+                the ``kernels`` line). The line: step ms p50 and
+                tokens/s of both, peak memory, the slots dispatched per
+                layer and C, the slots dropped per microbatch and layer
+                by one device and by the mesh's routing records, one mesh
+                step's card ms in gathers, reduction, products, MoE
+                dispatch and combine, attention forward and backward,
+                AdamW and the rest.
 
 Output: a ``slice`` JSON line (per-request and per-bucket times), a
 ``two_stage`` JSON line (off vs safe(scan) vs safe(inverted): per-request
@@ -378,7 +401,9 @@ checks (iv)–(vi), a one-step card profile),
 a ``train_loop`` JSON line (save and restore seconds, checkpoint and free
 bytes, host step ms, restarts, bit-equality, launches), a ``train_mesh``
 JSON line (step ms, tokens/s, peak memory, a one-step card profile,
-launches, save and restore seconds, checks (i)–(iii)),
+launches, save and restore seconds, checks (i)–(iii)), a
+``train_mesh_moe`` JSON line (both step times, peak memory, the slots
+dispatched and dropped, a one-step card profile, checks (i)–(ii)),
 a ``phases`` JSON line (seconds per phase),
 the card's name and power limit, a ``kernels`` JSON line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -578,6 +603,14 @@ LOOP_DISK_SHARE = 2.2
 MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
 MESH_ELASTIC = ((4, 1), ("data", "model"))
 MESH_STEPS, MESH_CUT = 3, 2
+#: the train_mesh_moe phase: grok-1 at its published attention, expert and
+#: vocab widths, 2 of 64 layers and d_ff 32768 → 4096 (one full layer is
+#: 4.92 B parameters, 59 GB of f32 state with AdamW's moments: none trains
+#: on 80 GB); (i) at d_ff MOE_CHECK_DFF in float32, where one device's
+#: gradients and the mesh's fit together
+MOE_TRAIN_CONFIG = dataclasses.replace(LMR.get_config("grok-1-314b"), num_layers=2,
+                                       d_ff=4096)
+MOE_CHECK_DFF = 1024
 #: (i): tests/test_torch_train.py:41's loss and gradient-norm tolerances
 MESH_LOSS_TOL, MESH_NORM_TOL = 2e-5, 1e-5
 #: (ii): each bf16 loss within this share of the one-device run's
@@ -628,7 +661,7 @@ PREFILL_TOL = 1e-4
 #: of the hybrid and encoder-decoder paths
 PATH_CASES = ("whisper encoder", "cross prefill", "cross decode", "hymba ring decode",
               "hymba prefill", "whisper self prefill", "hymba global decode",
-              "grok prefill", "grok decode", "llama4 decode")
+              "grok prefill", "grok decode", "llama4 decode", "grok train replica")
 #: postings_merge's edge cases: C (the path's rows folded into [0, C))
 MERGE_EDGES = (131071, 45, 1)
 
@@ -2396,21 +2429,33 @@ def _flash_cases():
         ("grok prefill", (B, 48, 8, MOE_PROMPT, MOE_PROMPT, 128), True, 0, f32, f32),
         ("grok decode", (B, 48, 8, 1, MOE_PROMPT + LM_NEW, 128), False, 0, f32, bf16),
         ("llama4 decode", (B, 40, 8, 1, MOE_PROMPT + LM_NEW, 128), False, 0, f32, bf16),
+        # grok's training launch on a mesh replica (train_mesh_moe): a row
+        # of the microbatch, bf16 q and k/v
+        ("grok train replica", _grok_replica_shape(), True, 0, bf16, bf16),
     ]
+
+
+def _grok_replica_shape():
+    """(B, Hq, Hkv, Lq, Lk, D) of grok's attention on one replica of the
+    train_mesh_moe phase: a microbatch's rows over MESH_SHAPE's data axis."""
+    c = MOE_TRAIN_CONFIG
+    return (TRAIN_BATCH // TRAIN_MB // MESH_SHAPE[0], c.num_heads, c.num_kv_heads, TRAIN_SEQ,
+            TRAIN_SEQ, c.head_dim)
 
 
 def _flash_path_row(rng, dev, what, shape, causal, window, qdt, kvdt):
     """The attention kernel timed at one launch shape of an LM path: CUDA
     events, the profiler's device time, its twin, its bound (split-TF32 on
-    the tensor cores for ``flash_fwd``, float32 CUDA cores for the split-key
-    kernel) and one SDPA call (on the cache cast to float32 outside the
-    timed window where K/V are bf16). The path shapes have no window: a
-    causal one counts the (query, key) pairs its mask keeps (queries
-    right-aligned), any other every pair."""
+    the tensor cores for ``flash_fwd`` on float32 queries, the BF16
+    tensor-core rate for bf16 q and k/v, float32 CUDA cores for the
+    split-key kernel) and one SDPA call (on the cache cast to q's dtype
+    outside the timed window where K/V are bf16 and q float32). The path
+    shapes have no window: a causal one counts the (query, key) pairs its
+    mask keeps (queries right-aligned), any other every pair."""
     B, Hq, Hkv, Lq, Lk, D = shape
     q, k, v = _flash_args(rng, dev, *shape, qdt=qdt, kvdt=kvdt)
     kern = lambda: FA.flash_attention(q, k, v, causal=causal, window=window)
-    k32, v32 = k.float(), v.float()
+    k32, v32 = k.to(qdt), v.to(qdt)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k32, v32, is_causal=causal, enable_gqa=True)
     if causal and Lq != Lk:
@@ -2420,7 +2465,9 @@ def _flash_path_row(rng, dev, what, shape, causal, window, qdt, kvdt):
     pairs = Lq * (Lq + 1) / 2 if causal else Lq * Lk
     nops = 4.0 * B * Hq * D * pairs
     split_key = Lq * (Hq // Hkv) <= FA.SPLIT_ROWS
+    bf16 = qdt == kvdt == torch.bfloat16
     b, by = (bound_ms(nbytes, nops) if split_key
+             else bound_ms(nbytes, nops, BF16_OPS_S) if bf16
              else bound_ms(nbytes, SPLIT_TF32_PRODUCTS * nops, TF32_OPS_S))
     reps = 50 if split_key else 10
     out = dict(shape=[list(q.shape), list(k.shape), f"{str(qdt)[6:]} q, {str(kvdt)[6:]} k/v"],
@@ -2428,7 +2475,7 @@ def _flash_path_row(rng, dev, what, shape, causal, window, qdt, kvdt):
                ms=cuda_ms(kern, reps), device_ms=profiled_ms(kern, reps, FLASH_KERNEL),
                plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=causal), 3, warm=1),
                library_ms=cuda_ms(sdpa, reps), bound_ms=b, bound_by=by)
-    if not split_key:
+    if not split_key and not bf16:
         out["fp32_bound_ms"] = bound_ms(nbytes, nops)[0]
     return out
 
@@ -2509,7 +2556,8 @@ def phase_flash(dev):
         f"decode with window 1024, 4 positions × 4 heads, whisper's encoder, cross "
         f"prefill and cross decode, hymba's ring decode, hymba's prefill and global "
         f"decode, whisper's decoder self-attention, grok's head-dim-128 prefill and "
-        f"decode, llama4's decode) — each matches its twin (max "
+        f"decode, llama4's decode, grok's bf16 training launch on a mesh replica) — each "
+        f"matches its twin (max "
         f"|diff| {worst}; prefill {prefill_err}); prefill {row['ms']:.4f} ms events, "
         f"{row['device_ms']} ms "
         f"device, twin {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
@@ -2664,15 +2712,14 @@ def _spans_ms(fn, names):
     return [sum(e0.elapsed_time(e1) for e0, e1 in spans[n]) for n in names]
 
 
-def _moe_drops(fn):
-    """One call of ``fn`` counting MoE capacity dispatch
-    (`layers.slots`): (slots dispatched, slots dropped, the capacities),
-    summed over its MoE layers."""
+def _moe_slots(fn):
+    """One call of ``fn`` counting MoE capacity dispatch (`layers.slots`):
+    (slots dispatched, slots dropped, C) of each call, in call order."""
     from repro_torch.models import layers as LY
     saved, seen = LY.slots, []
 
-    def counted(experts, E, C):
-        out = saved(experts, E, C)
+    def counted(experts, E, C, *rest):
+        out = saved(experts, E, C, *rest)
         seen.append((out[2].numel(), (~out[2]).sum(), C))
         return out
 
@@ -2681,7 +2728,14 @@ def _moe_drops(fn):
         fn()
     finally:
         LY.slots = saved
-    return (sum(n for n, _, _ in seen), int(sum(int(d) for _, d, _ in seen)),
+    return [(n, int(d), c) for n, d, c in seen]
+
+
+def _moe_drops(fn):
+    """`_moe_slots` summed over the MoE layers: (slots dispatched, slots
+    dropped, the capacities)."""
+    seen = _moe_slots(fn)
+    return (sum(n for n, _, _ in seen), sum(d for _, d, _ in seen),
             sorted({c for _, _, c in seen}))
 
 
@@ -2953,16 +3007,18 @@ def _bwd_cases():
     c = TRAIN_CONFIG
     train = ("train", (TRAIN_BATCH // TRAIN_MB, c.num_heads, c.num_kv_heads, TRAIN_SEQ,
                        TRAIN_SEQ, c.head_dim), True, 0, bf16)
-    # the mesh phase's launch: a microbatch's rows over MESH_SHAPE's data axis
+    # the mesh phases' launches: a microbatch's rows over MESH_SHAPE's data
+    # axis, tinyllama's and grok's
     replica = ("train mesh replica", (TRAIN_BATCH // TRAIN_MB // MESH_SHAPE[0], c.num_heads,
                                       c.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ, c.head_dim),
                True, 0, bf16)
+    grok = ("train mesh replica grok", _grok_replica_shape(), True, 0, bf16)
     sweep = [(f"D {D} {str(dt)[6:]}", (2, 8, 2, 384, 384, D), True, 0, dt)
              for D in FA.HEAD_DIMS for dt in (f32, bf16)]
     # the window, cross and no-key shapes in both dtypes: bf16 takes the
     # tensor-core kernels, float32 the CUDA-core ones
     window, cross = (1, 25, 5, 2048, 2048, 64), (2, 12, 12, ENCDEC_PROMPT, ENCDEC_FRAMES, 64)
-    return [train, replica] + sweep + [
+    return [train, replica, grok] + sweep + [
         ("window 1024", window, True, 1024, f32),
         ("window 1024 bf16", window, True, 1024, bf16),
         ("whisper cross", cross, False, 0, f32),
@@ -2979,9 +3035,10 @@ def _rel_each(got, want) -> float:
 
 
 def phase_attention_bwd(dev):
-    """The backward kernel against its twin at the training launch and the
-    sweep, bit-equal across two launches, then timed at the training
-    launch beside its twin, its bound and SDPA's backward."""
+    """The backward kernel against its twin at the training launches and
+    the sweep, bit-equal across two launches, then timed at tinyllama's
+    training launch and grok's mesh replica's, each beside its twin, its
+    bound and SDPA's backward."""
     rng = torch.Generator(device=dev).manual_seed(SEED + 26)
     errs, abs_err = {}, 0.0
     for what, shape, causal, window, dt in _bwd_cases():
@@ -3009,18 +3066,54 @@ def phase_attention_bwd(dev):
         del q, k, v, do, o, got, again, want
     torch.cuda.empty_cache()
 
-    _, shape, causal, window, dt = _bwd_cases()[0]
+    _, shape, _, _, dt = _bwd_cases()[0]
+    row = dict(source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="none: src/repro/models/layers.py:91 (attend), differentiated by XLA; "
+                        "the Pallas kernel src/repro/kernels/flash_attention.py:73 has no "
+                        "backward",
+               max_abs_err=abs_err, max_rel_err_by_case=errs,
+               library="the backward alone of scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) on the same bf16 inputs",
+               **_bwd_timing(rng, dev, shape, dt, by_kernel=True))
+    grok = _bwd_timing(rng, dev, _grok_replica_shape(), torch.bfloat16)
+    grok["bound_ms"], grok["bound_by"] = bound_ms(*grok.pop("work"))
+    row["grok_mesh_replica"] = grok
+    row["ptxas"] = {}
+    for e, ln in _ptxas("flash_attention_bwd"):
+        row["ptxas"][e] = f"{row['ptxas'][e]}; {ln}" if e in row["ptxas"] else ln
+    row["sass"] = _sass_counts("flash_attention_bwd", BWD_TC_KERNELS, BWD_SASS_OPS)
+    say(f"attention_bwd: {len(errs)} shapes (tinyllama's training launch and its mesh "
+        f"replica's, grok's mesh replica's, D 32/64/96/128 "
+        f"in f32 and bf16; window 1024, whisper's cross shape and rows with no key in f32 "
+        f"and bf16; ragged Lq < Lk) — each matches its twin (largest error "
+        f"{max(errs.values()):.3g} of the largest output) and is bit-equal across two "
+        f"launches; training launch {row['ms']:.4f} ms events, {row['device_ms']} ms device "
+        f"({', '.join(f'{p} {v}' for p, v in row['device_ms_by_kernel'].items())}), twin "
+        f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} ms, bound "
+        f"{bound_ms(*row['work'])[0]:.4f} ms ({row['bound_route']}; "
+        f"{row['fp32_bound_ms']:.4f} ms on the float32 CUDA cores); grok's mesh replica "
+        f"launch {grok['ms']:.4f} ms events, {grok['device_ms']} ms device, twin "
+        f"{grok['plain_ms']:.4f} ms, SDPA backward {grok['library_ms']:.4f} ms, bound "
+        f"{grok['bound_ms']:.4f} ms; SASS {json.dumps(row['sass'])}")
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": row}
+
+
+def _bwd_timing(rng, dev, shape, dt, by_kernel: bool = False):
+    """The backward kernel timed at one causal launch ``shape`` in ``dt``:
+    CUDA events, the profiler's device time (``by_kernel``: also each of
+    BWD_PARTS alone), its twin, SDPA's backward alone (its forward outside
+    the timed window), and the work of its bound."""
     B, Hq, Hkv, S, _, D = shape
     q, k, v = _flash_args(rng, dev, *shape, qdt=dt, kvdt=dt)
     do = torch.randn(q.shape, generator=rng, device=dev).to(dt)
     o = FA.flash_attention(q, k, v, causal=True)
     kern = lambda: FA.flash_attention_bwd(q, k, v, o, do, causal=True)
-    # SDPA's backward alone: its forward outside the timed window
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
                                                            enable_gqa=True)
     sdpa_bwd = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
-    check_close("SDPA's backward (the library yardstick)",
+    check_close(f"SDPA's backward at {list(q.shape)} (the library yardstick)",
                 [g.float() for g in sdpa_bwd()], [g.float() for g in kern()], 5e-2)
     # q, k, v, o, dO in and dq, dk, dv out once; five products of 2·D
     # multiply-adds over each (query, key) pair the causal mask keeps, at
@@ -3035,38 +3128,14 @@ def phase_attention_bwd(dev):
         work = (nbytes, SPLIT_TF32_PRODUCTS * nops, TF32_OPS_S)
         route = (f"TF32 tensor cores, five products a pair, {SPLIT_TF32_PRODUCTS} TF32 "
                  f"products a float32 product (split TF32)")
-    row = dict(source="src/repro_torch/csrc/flash_attention_bwd.cu",
-               replaces="none: src/repro/models/layers.py:91 (attend), differentiated by XLA; "
-                        "the Pallas kernel src/repro/kernels/flash_attention.py:73 has no "
-                        "backward",
-               max_abs_err=abs_err, max_rel_err_by_case=errs,
-               shape=[list(q.shape), list(k.shape), "bfloat16, causal"],
+    out = dict(shape=[list(q.shape), list(k.shape), f"{str(dt)[6:]}, causal"],
                ms=cuda_ms(kern, 10), device_ms=profiled_ms(kern, 5, BWD_KERNEL),
-               device_ms_by_kernel={p: profiled_ms(kern, 5, p) for p in BWD_PARTS},
                plain_ms=cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do), 3, warm=1),
-               library_ms=cuda_ms(sdpa_bwd, 10),
-               library="the backward alone of scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True) on the same bf16 inputs",
-               bound_route=route, work=work,
+               library_ms=cuda_ms(sdpa_bwd, 10), bound_route=route, work=work,
                fp32_bound_ms=bound_ms(nbytes, nops, FP32_OPS_S)[0])
-    row["ptxas"] = {}
-    for e, ln in _ptxas("flash_attention_bwd"):
-        row["ptxas"][e] = f"{row['ptxas'][e]}; {ln}" if e in row["ptxas"] else ln
-    row["sass"] = _sass_counts("flash_attention_bwd", BWD_TC_KERNELS, BWD_SASS_OPS)
-    say(f"attention_bwd: {len(errs)} shapes (tinyllama's training launch and its mesh "
-        f"replica's, D 32/64/96/128 "
-        f"in f32 and bf16; window 1024, whisper's cross shape and rows with no key in f32 "
-        f"and bf16; ragged Lq < Lk) — each matches its twin (largest error "
-        f"{max(errs.values()):.3g} of the largest output) and is bit-equal across two "
-        f"launches; training launch {row['ms']:.4f} ms events, {row['device_ms']} ms device "
-        f"({', '.join(f'{p} {v}' for p, v in row['device_ms_by_kernel'].items())}), twin "
-        f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} ms, bound "
-        f"{bound_ms(*row['work'])[0]:.4f} ms ({route}; "
-        f"{row['fp32_bound_ms']:.4f} ms on the float32 CUDA cores); SASS "
-        f"{json.dumps(row['sass'])}")
-    del q, k, v, do, o, leaves, out
-    torch.cuda.empty_cache()
-    return {"flash_attention_bwd": row}
+    if by_kernel:
+        out["device_ms_by_kernel"] = {p: profiled_ms(kern, 5, p) for p in BWD_PARTS}
+    return out
 
 
 def _memorisable_batch(B, S, n_mb, dev):
@@ -3082,9 +3151,9 @@ def _memorisable_batch(B, S, n_mb, dev):
 def _train_split(step, spans=None):
     """One call of ``step`` under the profiler: card ms in matrix products,
     the attention forward, its backward, each of ``spans`` ({name: (module,
-    function)}: the kernels launched inside each call of that function;
+    function)}: the other kernels that run inside a call of that function;
     by default the optimizer, `optimizer.apply`) and the rest, and the wall
-    ms."""
+    ms (`_split_kernels`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     spans = spans or {"optimizer": (OPT, "apply")}
@@ -3107,22 +3176,36 @@ def _train_split(step, spans=None):
     finally:
         for name, (mod, fn) in spans.items():
             setattr(mod, fn, saved[name])
+    split = _split_kernels([(e.name, e.time_range.start, e.time_range.end, e.device_time_total)
+                            for e in prof.events() if e.device_type == DeviceType.CUDA], spans)
+    split["wall"] = 1e3 * wall
+    return split
+
+
+def _split_kernels(events, spans):
+    """Card ms by part from the card's events of a profile, each (name,
+    start µs, end µs, device µs): kernels of matrix products and of the
+    attention forward and backward by name; any other kernel in the span
+    whose range on the card's timeline (its ``span_<name>`` annotation,
+    from the span's first kernel to its last: one stream runs them in the
+    order they were issued) holds its start, the innermost of nested
+    spans; else the rest. Also the 8 kernels with the most time. (The
+    spans' host events are not read: the profiler has credited them with
+    library product kernels launched elsewhere.)"""
     split = dict(products=0.0, attention_fwd=0.0, attention_bwd=0.0, rest=0.0,
                  **dict.fromkeys(spans, 0.0))
+    windows = sorted((t1 - t0, t0, t1, name[5:]) for name, t0, t1, _ in events
+                     if name.startswith("span_"))
     by_name = {}
-    for e in prof.events():
-        if e.name.startswith("span_") and e.device_type == DeviceType.CPU:
-            split[e.name[5:]] += e.device_time_total / 1e3
-        if e.device_type != DeviceType.CUDA:
+    for name, t0, _, us in events:
+        if name.startswith("span_"):
             continue
-        key = ("attention_fwd" if FLASH_KERNEL in e.name else
-               "attention_bwd" if BWD_KERNEL in e.name else
-               "products" if any(t in e.name.lower() for t in PRODUCT_KERNELS)
-               else "rest")
-        split[key] += e.device_time_total / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    split["rest"] -= sum(split[name] for name in spans)
-    split["wall"] = 1e3 * wall
+        key = ("attention_fwd" if FLASH_KERNEL in name else
+               "attention_bwd" if BWD_KERNEL in name else
+               "products" if any(t in name.lower() for t in PRODUCT_KERNELS) else
+               next((w for _, w0, w1, w in windows if w0 <= t0 < w1), "rest"))
+        split[key] += us / 1e3
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
     split["top_kernels"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return split
 
@@ -3669,6 +3752,228 @@ def phase_train_mesh(dev):
     return launches
 
 
+def _sharded_state(cfg, mesh, dev):
+    """``TS.init_state(cfg, SEED, dev)`` sharded by `state_shardings`, a
+    part at a time: the parameters drawn on ``dev``, sharded, then freed,
+    and the moments as sharded zeros, so the card never holds the whole
+    state twice, as `device_put` of a whole state would."""
+    from repro_torch.sharding import array as SA
+    params = LMP.init_params(cfg, SEED, device=dev)
+    sp = SA.device_put(params, TS.state_shardings(cfg, mesh).params)
+    del params
+    zeros = lambda: _tree(sp, lambda st: SA.zeros(st.shape, torch.float32, st.sharding))
+    return TS.TrainState(params=sp, opt=OPT.AdamWState(mu=zeros(), nu=zeros(), step=0), step=0)
+
+
+def _replica_losses(cfg, params, batch, reps, routed: bool = True):
+    """Without gradients, each microbatch's `replicas` through
+    `transformer.loss_sums` on ``params`` (whole, on one device) → (the
+    mean over microbatches of the replicas' NLL sum over the label count;
+    the slots each MoE layer dropped, per microbatch, from its routing
+    record). ``routed=False``: each replica on its own, its own capacity
+    and no offsets (a naive data-parallel split), and no drops."""
+    n_mb = batch["tokens"].shape[0]
+    loss, drops = 0.0, []
+    with torch.no_grad():
+        for i in range(n_mb):
+            routing = TT.Routing(batch["tokens"][i].numel()) if routed else None
+            nll = sum(float(TT.loss_sums(params, cfg, {k: v[i, rows] for k, v in batch.items()},
+                                         routing=routing)[0]) for _, rows in reps)
+            loss += nll / float((batch["labels"][i] >= 0).sum()) / n_mb
+            if routed:
+                drops.append([int(d) for d in routing.dropped(cfg.experts_per_token,
+                                                              cfg.num_experts)])
+    return loss, drops
+
+
+def phase_train_mesh_moe(dev):
+    """grok-1's MoE layers trained on a MESH_SHAPE mesh of the card through
+    `make_train_step(mesh=...)`, with checks (i)–(ii); prints the
+    ``train_mesh_moe`` line and returns the launches of (ii)'s mesh
+    steps."""
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models import layers as LY
+    from repro_torch.sharding import array as SA
+
+    cfg, B, S, n_mb = MOE_TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB
+    L, E, K = cfg.num_layers, cfg.num_experts, cfg.experts_per_token
+    tcfg = TS.TrainConfig(microbatches=n_mb, opt=OPT.AdamWConfig(**TRAIN_OPT))
+    batch = _memorisable_batch(B, S, n_mb, dev)
+    mesh = MM.make_mesh(MESH_SHAPE, MESH_AXES)
+    reps = TS.replicas(cfg, mesh, batch)
+    n_rep = len(reps)
+    C, C_naive = LY.capacity(B // n_mb * S, E, K), LY.capacity(B // n_mb // n_rep * S, E, K)
+    torch.cuda.empty_cache()
+
+    # (i) at d_ff MOE_CHECK_DFF in float32: the accumulated gradients and
+    # one step against one device's; the mesh step twice, bit-equal; slots
+    # dropped; the naive split misses
+    cfg2 = dataclasses.replace(cfg, d_ff=MOE_CHECK_DFF, dtype="float32")
+    p2 = LMP.init_params(cfg2, SEED, device=dev)
+    loss_1, g_1 = TS.accumulate_grads(cfg2, p2, batch)
+    naive_loss, _ = _replica_losses(cfg2, p2, batch, reps, routed=False)
+    routed_loss, drops_i = _replica_losses(cfg2, p2, batch, reps)
+    sp2 = SA.device_put(p2, TS.state_shardings(cfg2, mesh).params)
+    del p2
+    loss_m, g_m = TS.accumulate_grads_mesh(cfg2, sp2, batch, mesh)
+    del sp2
+    grad_err = _leaf_rel(OPT.tree_leaves(SA.gather_tree(g_m, dev)), OPT.tree_leaves(g_1))
+    del g_1, g_m
+    torch.cuda.empty_cache()
+    m1 = TS.make_train_step(cfg2, tcfg)(TS.init_state(cfg2, SEED, device=dev), batch)[1]
+    torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        st, mm = TS.make_train_step(cfg2, tcfg, mesh=mesh)(_sharded_state(cfg2, mesh, dev), batch)
+        runs.append(([b for t in SA.leaves(st.params) for b in t.blocks], mm))
+        del st
+        torch.cuda.empty_cache()
+    (pa, ma), (pb, mb) = runs
+    twice_equal = all(torch.equal(ma[k], mb[k]) for k in ("loss", "grad_norm")) and all(
+        torch.equal(x, y) for x, y in zip(pa, pb))
+    one = float(loss_1)
+    check_i = dict(loss_rel=abs(float(ma["loss"]) - float(m1["loss"])) / float(m1["loss"]),
+                   grad_norm_rel=abs(float(ma["grad_norm"]) - float(m1["grad_norm"]))
+                   / float(m1["grad_norm"]),
+                   accumulated_loss_rel=abs(float(loss_m) - one) / one, grad_rel=grad_err,
+                   twice_bit_equal=twice_equal, dropped=drops_i,
+                   routed_loss_rel=abs(routed_loss - one) / one,
+                   naive_split_loss_rel=abs(naive_loss - one) / one)
+    del runs, pa, pb
+    torch.cuda.empty_cache()
+    if not (check_i["loss_rel"] <= MESH_LOSS_TOL and check_i["accumulated_loss_rel"]
+            <= MESH_LOSS_TOL and check_i["grad_norm_rel"] <= MESH_NORM_TOL
+            and grad_err <= TRAIN_TOL and twice_equal):
+        fail(f"train_mesh_moe (i): at d_ff {MOE_CHECK_DFF} in float32 the mesh step differs "
+             f"from one device's: {check_i} (limits: loss {MESH_LOSS_TOL}, norm "
+             f"{MESH_NORM_TOL}, gradients {TRAIN_TOL}, two runs bit-equal)")
+    if not sum(map(sum, drops_i)) > 0:
+        fail(f"train_mesh_moe (i): no slot dropped ({drops_i} by microbatch and layer, C {C})")
+    if not check_i["naive_split_loss_rel"] > 10 * MESH_LOSS_TOL:
+        fail(f"train_mesh_moe (i): a naive split (each replica its own C = {C_naive}) is "
+             f"within {check_i['naive_split_loss_rel']} of one device's loss, not past "
+             f"{10 * MESH_LOSS_TOL}: the check has no teeth")
+
+    # (ii) the phase's cut in bf16: one device, freed, then the mesh
+    alloc = [torch.cuda.memory_allocated()]
+    state = TS.init_state(cfg, SEED, device=dev)
+    n_params = sum(t.numel() for t in OPT.tree_leaves(state.params))
+    state_bytes = 3 * 4 * n_params
+    cp = _tree(state.params, lambda t: t.to(torch.bfloat16))
+    with torch.no_grad():
+        one_slots = [_moe_slots(lambda i=i: TT.loss_sums(cp, cfg, {k: v[i] for k, v in
+                                                                   batch.items()}))
+                     for i in range(n_mb)]
+    del cp
+    step = TS.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, want = [], []
+    for _ in range(MESH_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        marks.append((e0, e1))
+        want.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    one_ms = [x.elapsed_time(y) for x, y in marks]
+    one_peak = torch.cuda.max_memory_allocated()
+    del state, step, m
+    torch.cuda.empty_cache()
+    alloc.append(torch.cuda.memory_allocated())
+    if alloc[1] > alloc[0] + state_bytes // 2:
+        fail(f"train_mesh_moe (ii): {alloc[1]} bytes allocated after the one-device run, "
+             f"{alloc[0]} before it: its state was not released")
+    state = _sharded_state(cfg, mesh, dev)
+    # the mesh's drops at step 1's parameters, each microbatch's replicas
+    # through one routing record
+    cp = TS._gather_params(list(OPT.tree_items(state.params)), dev, torch.bfloat16)
+    _, mesh_drops = _replica_losses(cfg, cp, batch, reps)
+    del cp
+    torch.cuda.empty_cache()
+    step = TS.make_train_step(cfg, tcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    marks, losses, norms, copies = [], [], [], []
+    for _ in range(MESH_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        marks.append((e0, e1))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        copies.append(all(SA.copies_equal(t) for t in SA.leaves(state)))
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [x.elapsed_time(y) for x, y in marks]
+    rel = [abs(x - w) / abs(w) for x, w in zip(losses, want)]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"train_mesh_moe (ii): a non-finite loss or gradient norm: {losses} {norms}")
+    if not max(rel) <= MESH_BF16_TOL:
+        fail(f"train_mesh_moe (ii): mesh losses {losses} against one device's {want} (limit "
+             f"{MESH_BF16_TOL} relative)")
+    if not all(copies):
+        fail(f"train_mesh_moe (ii): replicated copies differ after steps {copies}")
+    per_step = {"flash_attention": 2 * L * n_mb * n_rep, "flash_attention_bwd": L * n_mb * n_rep}
+    for name, per in per_step.items():
+        if launches[name] != per * MESH_STEPS:
+            fail(f"train_mesh_moe: {name} launched {launches[name]} times in {MESH_STEPS} "
+                 f"steps, expected {per} a step ({L} layers × {n_mb} microbatches × {n_rep} "
+                 f"replicas)")
+    out = []
+    split = _train_split(lambda: out.append(step(state, batch)), {
+        "gathers": (TS, "_gather_params"), "reduction": (TS, "_reduce_grad"),
+        "optimizer": (OPT, "apply_sharded"), "moe": (LY, "moe"), "experts": (LY, "_experts")})
+    del out, state, step
+    torch.cuda.empty_cache()
+    # MoE dispatch and combine, forward and recomputation: the router's
+    # softmax and sort, the slot table, the gathers, gate scale and sum
+    # (their backward stays in the rest); _experts' elementwise kernels
+    # belong to the rest (its products, and the router's, are products)
+    split["moe_dispatch_combine"] = split.pop("moe")
+    split["rest"] += split.pop("experts")
+
+    one_drops = [[d for _, d, _ in calls] for calls in one_slots]
+    p50, one_p50 = float(np.percentile(step_ms, 50)), float(np.percentile(one_ms, 50))
+    line = dict(
+        arch=cfg.name, layers=L, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        heads=[cfg.num_heads, cfg.num_kv_heads], experts=E, top_k=K, vocab=cfg.vocab_size,
+        params=n_params, state_bytes=state_bytes, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+        replicas=n_rep, batch=B, seq=S, microbatches=n_mb, steps=MESH_STEPS, dtype=cfg.dtype,
+        opt=TRAIN_OPT, capacity=C, naive_capacity=C_naive, check_i=check_i,
+        check_i_d_ff=MOE_CHECK_DFF, losses_one_device=want, losses_mesh=losses,
+        grad_norms_mesh=norms, check_ii_loss_rel=rel, copies_bit_identical=copies,
+        alloc_before_after_one_device=alloc,
+        step_ms_one_device=one_ms, step_ms_p50_one_device=one_p50,
+        tokens_s_one_device=B * S / (one_p50 / 1e3), peak_alloc_bytes_one_device=one_peak,
+        step_ms=step_ms, step_ms_p50=p50, tokens_s=B * S / (p50 / 1e3), peak_alloc_bytes=peak,
+        slots_per_layer=[n for n, _, _ in one_slots[0]],
+        capacities_one_device=sorted({c for calls in one_slots for _, _, c in calls}),
+        dropped_one_device=one_drops, dropped_mesh=mesh_drops,
+        dropped_equal=one_drops == mesh_drops,
+        launches={k: launches[k] for k in per_step}, launches_per_step=per_step,
+        step_profile_ms=split)
+    say("train_mesh_moe " + json.dumps(line))
+    say(f"train_mesh_moe: {cfg.name} ({L} layers, d {cfg.d_model}, {E} experts top-{K}, d_ff "
+        f"{cfg.d_ff}, {n_params} parameters) on a {' × '.join(map(str, MESH_SHAPE))} "
+        f"{MESH_AXES} mesh of one card ({n_rep} replicas, C {C} against a naive split's "
+        f"{C_naive}): (i) at d_ff {MOE_CHECK_DFF} in float32 == one device (loss "
+        f"{check_i['loss_rel']:.3g}, norm {check_i['grad_norm_rel']:.3g}, gradients "
+        f"{grad_err:.3g}), two runs bit-equal, {sum(map(sum, drops_i))} slots dropped, the "
+        f"naive split {check_i['naive_split_loss_rel']:.3g} off; (ii) {MESH_STEPS} bf16 steps "
+        f"within {max(rel):.3g} of one device's losses, copies bit-identical; step "
+        f"{p50:.1f} ms p50 ({line['tokens_s']:.0f} tokens/s) against one device's "
+        f"{one_p50:.1f}, peak {peak / 1e9:.1f} GB (one device {one_peak / 1e9:.1f}); dropped "
+        f"by microbatch and layer {mesh_drops} (one device {one_drops}); "
+        f"{per_step['flash_attention']} flash_attention and "
+        f"{per_step['flash_attention_bwd']} flash_attention_bwd launches a step")
+    return launches
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3870,7 +4175,7 @@ def main(argv) -> None:
         fail(f"flash_attention_bwd: the bf16 kernels' SASS lacks {BWD_SASS_OPS}: {sass}")
     # the training paths' launches: their forward's join the LM paths'
     for name, fn in (("train", phase_train), ("train_loop", phase_train_loop),
-                     ("train_mesh", phase_train_mesh)):
+                     ("train_mesh", phase_train_mesh), ("train_mesh_moe", phase_train_mesh_moe)):
         for k, v in timed(name, fn, dev).items():
             if k in LM_TRAIN_KERNELS:
                 launches[k] += v

@@ -18,6 +18,7 @@ both per layer; the numbers are the same.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -146,18 +147,27 @@ def router(xt, w, K: int):
     return vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), idx
 
 
-def slots(experts, E: int, C: int):
+def capacity(tokens: int, E: int, K: int, capacity_factor: float = 1.25) -> int:
+    """Slots an expert takes from a call over ``tokens`` tokens:
+    max(int(capacity_factor · K · tokens / E), 1)."""
+    return max(int(capacity_factor * K * tokens / E), 1)
+
+
+def slots(experts, E: int, C: int, offset=None):
     """Capacity dispatch of the (token, k) slots ``experts`` [T, K]: each
     slot's place in its expert's queue is the running count over the flat
-    (t, k) order, and a place at or past ``C`` is dropped. Returns (the (E,
-    C) token table, sentinel T where no slot landed; each slot's row in
-    the flattened [E·C] expert outputs, E·C where dropped; the kept mask
-    [T, K])."""
+    (t, k) order, and a place at or past ``C`` is dropped. ``offset`` [E]
+    int64 (default: zeros): slots each queue holds ahead of this call's,
+    so a slot is kept while its place plus ``offset[e]`` is below ``C``;
+    its column in this call's table is its own place, so the table never
+    overflows. Returns (the (E, C) token table, sentinel T where no slot
+    landed; each slot's row in the flattened [E·C] expert outputs, E·C
+    where dropped; the kept mask [T, K])."""
     T, K = experts.shape
     e = experts.reshape(-1)
     onehot = F.one_hot(e, E)                                          # [T·K, E]
     pos = onehot.cumsum(0).gather(1, e[:, None])[:, 0] - 1
-    keep = pos < C
+    keep = pos < C if offset is None else pos + offset[e] < C
     c = torch.where(keep, pos, C)
     table = torch.full((E, C + 1), T, dtype=torch.int64, device=e.device)
     # the dropped slots all land in column C, which is cut off
@@ -181,21 +191,30 @@ def _shared(p) -> dict:
 
 
 def moe(x, p, cfg, *, capacity_factor: float = 1.25, dense: bool = False,
-        dispatch: str = "gather"):
+        dispatch: str = "gather", tokens: Optional[int] = None,
+        offset: Optional[torch.Tensor] = None, return_counts: bool = False):
     """Mixture-of-experts FFN. x: [B, S, d] → [B, S, d].
 
     * ``dispatch="gather"`` (default): the (E, C) token table of `slots`,
-      C = max(int(capacity_factor · K · T / E), 1); each expert's rows
-      gathered, its three products, each slot's output scaled by its gate;
-      a token sums its K slots in k order through its slot rows (no
-      scatter-add, so no order set by atomics).
+      C = `capacity` (``tokens``) = max(int(capacity_factor · K · tokens /
+      E), 1); each expert's rows gathered, its three products, each slot's
+      output scaled by its gate; a token sums its K slots in k order
+      through its slot rows (no scatter-add, so no order set by atomics).
     * ``dispatch="einsum"``: the reference's one-hot formulation, [T, E, C]
       dispatch and combine tensors; it drops the same slots.
     * ``dense=True``: every expert on every token, gate-weighted, no drops
       (decode's choice); experts in groups of `_DENSE_GROUP_ELEMS`.
 
     A dropped slot adds nothing: the token keeps its residual only. A
-    shared expert (llama4) is a dense `mlp` added on top."""
+    shared expert (llama4) is a dense `mlp` added on top.
+
+    x as rows of a larger call (a data replica's rows of a microbatch):
+    ``tokens`` the larger call's token count (default: this call's T) and
+    ``offset`` [E] int64 the slots its earlier rows sent to each expert
+    (default: none), so each slot keeps or drops as in the larger call
+    (`slots`). ``return_counts``: also return this call's [E] int64 slot
+    counts, dropped slots included: the next rows' offset is this one plus
+    them."""
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -213,8 +232,8 @@ def moe(x, p, cfg, *, capacity_factor: float = 1.25, dense: bool = False,
             part = (yo * full[:, e0:e0 + G].T[..., None]).sum(0)
             y = part if y is None else y + part
     else:
-        C = max(int(capacity_factor * K * T / E), 1)
-        table, row, keep = slots(experts, E, C)
+        C = capacity(T if tokens is None else tokens, E, K, capacity_factor)
+        table, row, keep = slots(experts, E, C, offset)
         if dispatch == "einsum":
             dt = x.dtype
             # a kept slot's place in its expert's queue is its row mod C
@@ -235,6 +254,8 @@ def moe(x, p, cfg, *, capacity_factor: float = 1.25, dense: bool = False,
     y = y.reshape(B, S, d)
     if "shared_w_in" in p:
         y = y + mlp(x, _shared(p), act)
+    if return_counts:
+        return y, F.one_hot(experts.reshape(-1), E).sum(0)
     return y
 
 

@@ -130,20 +130,40 @@ def _mixer(x, p, cfg: ModelConfig, cs, window, causal=True):
     return att * p["mix_attn"] + sout * p["mix_ssm"]
 
 
-def _ffn(x, p, cfg: ModelConfig, moe_dense: bool = False):
+@dataclasses.dataclass
+class MoECall:
+    """A layer's MoE call on rows that are part of a larger microbatch
+    (`Routing`): C's token count and the [E] int64 offsets it reads
+    (`layers.moe`); ``counts`` is set to the call's [E] slot counts when
+    it runs."""
+    tokens: int
+    offset: torch.Tensor
+    counts: Optional[torch.Tensor] = None
+
+
+def _moe(x, p, cfg: ModelConfig, moe_dense: bool, call: Optional[MoECall]):
+    if call is None:
+        return LY.moe(x, p, cfg, dense=moe_dense)
+    y, call.counts = LY.moe(x, p, cfg, tokens=call.tokens, offset=call.offset,
+                            return_counts=True)
+    return y
+
+
+def _ffn(x, p, cfg: ModelConfig, moe_dense: bool = False, moe_call: Optional[MoECall] = None):
     """A layer's FFN: the MLP, or (grok-1) the MoE FFN."""
     if "moe" in p and "mlp" not in p:
-        return LY.moe(x, p["moe"], cfg, dense=moe_dense)
+        return _moe(x, p["moe"], cfg, moe_dense, moe_call)
     return LY.mlp(x, p["mlp"], cfg.mlp_act)
 
 
 def block(x, p, cfg: ModelConfig, *, cs, window, causal=True, enc_out=None,
-          moe_dense: bool = False):
+          moe_dense: bool = False, moe_call: Optional[MoECall] = None):
     """One transformer layer, or one llama4 pair: pre-norm mixer, then (a
     decoder layer given ``enc_out``) pre-norm cross-attention to it, then
     pre-norm FFN, each added to the residual stream; a pair continues with
     pre-norm ``attn2`` and pre-norm MoE. RWKV6: time mix, then channel mix.
-    ``cs``: the RoPE tables (`layers.rope`) of the positions."""
+    ``cs``: the RoPE tables (`layers.rope`) of the positions; ``moe_call``:
+    the layer's MoE call on rows of a larger microbatch (`MoECall`)."""
     h = LY.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.rwkv:
         x = x + SM.rwkv_time_mix(h, p, cfg)[0]
@@ -152,11 +172,11 @@ def block(x, p, cfg: ModelConfig, *, cs, window, causal=True, enc_out=None,
     if enc_out is not None:
         x = x + LY.attention(LY.rms_norm(x, p["ln_x"], cfg.norm_eps), p["xattn"],
                              cfg, kv=enc_out, causal=False)
-    x = x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg, moe_dense)
+    x = x + _ffn(LY.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg, moe_dense, moe_call)
     if "ln3" in p:  # interleaved dense + MoE pair (llama4)
         x = x + LY.attention(LY.rms_norm(x, p["ln3"], cfg.norm_eps), p["attn2"], cfg,
                              cs=cs, causal=causal, window=window)
-        x = x + LY.moe(LY.rms_norm(x, p["ln4"], cfg.norm_eps), p["moe"], cfg, dense=moe_dense)
+        x = x + _moe(LY.rms_norm(x, p["ln4"], cfg.norm_eps), p["moe"], cfg, moe_dense, moe_call)
     return x
 
 
@@ -259,29 +279,83 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, remat_policy: str):
-    """``fn(x)`` recomputed in the backward (the reference's per-layer
-    ``jax.checkpoint``): ``"nothing"`` saves only its input, ``"dots"``
-    also the outputs of its products. The numbers are the same either way."""
+    """``fn(*inputs)`` recomputed in the backward (the reference's
+    per-layer ``jax.checkpoint``): ``"nothing"`` saves only its inputs,
+    ``"dots"`` also the outputs of its products. The numbers are the same
+    either way."""
     if remat_policy == "nothing":
-        return lambda x: CK.checkpoint(fn, x, use_reentrant=False)
+        return lambda *a: CK.checkpoint(fn, *a, use_reentrant=False)
     if remat_policy == "dots":
         ctx = functools.partial(CK.create_selective_checkpoint_contexts, _save_dots)
-        return lambda x: CK.checkpoint(fn, x, use_reentrant=False, context_fn=ctx)
+        return lambda *a: CK.checkpoint(fn, *a, use_reentrant=False, context_fn=ctx)
     raise ValueError(f"remat_policy {remat_policy!r}: one of 'nothing', 'dots'")
 
 
+class Routing:
+    """A microbatch's MoE routing record, for its rows split over data
+    replicas that run one after another (`train.train_step.
+    accumulate_grads_mesh`): ``tokens``, the microbatch's token count,
+    which sets every MoE call's capacity (`layers.capacity`), and
+    ``counts``, one [E] int64 vector per MoE call in call order: the slots
+    the replicas run so far sent to each expert, dropped ones included.
+
+    Replica r's rows follow replicas 0 … r−1's in the microbatch's (token,
+    k) order, so a slot's place in its expert's queue over the whole
+    microbatch is its place among replica r's slots plus that offset: each
+    replica keeps and drops the slots the one-device forward does."""
+
+    def __init__(self, tokens: int):
+        self.tokens = tokens
+        self.counts: list = []
+
+    def offset(self, call: int, E: int, dev) -> torch.Tensor:
+        """MoE call ``call``'s offset on ``dev``: the counts so far (zeros
+        before any replica has run)."""
+        if call < len(self.counts):
+            return self.counts[call].to(dev)
+        return torch.zeros((E,), dtype=torch.int64, device=dev)
+
+    def add(self, call: int, counts: torch.Tensor) -> None:
+        """Add one replica's counts at MoE call ``call``; a new tensor, so
+        an offset read before (held for a layer's recomputation) never
+        changes."""
+        if call == len(self.counts):
+            self.counts.append(counts)
+        else:
+            self.counts[call] = self.counts[call].to(counts.device) + counts
+
+    def dropped(self, K: int, E: int, capacity_factor: float = 1.25) -> list:
+        """Slots each MoE call dropped over the replicas run so far: an
+        expert keeps its first C."""
+        C = LY.capacity(self.tokens, E, K, capacity_factor)
+        return [(c - C).clamp_min(0).sum() for c in self.counts]
+
+
 def _train_blocks(x, blocks, cfg: ModelConfig, cs, *, causal=True, enc_out=None,
-                  remat_policy: str = "nothing"):
+                  remat_policy: str = "nothing", routing: Optional[Routing] = None):
     """The layer stack for training, each layer (a llama4 pair) recomputed
     in the backward; each layer keeps its own window (hymba's global
     layers among windowed ones; an encoder: full attention). MoE layers
-    run capacity dispatch."""
+    run capacity dispatch; with ``routing``, as rows of its microbatch: a
+    layer reads its offset before it runs, as an input of the recomputed
+    function, so its recomputation reads the same one, and its counts are
+    added once, from the forward's output."""
     windows = (layer_windows(cfg) if causal
                else np.zeros((cfg.encoder_layers,), np.int32))
-    for w, p in zip(windows, _unbind_layers(blocks)):
+    for li, (w, p) in enumerate(zip(windows, _unbind_layers(blocks))):
         fn = functools.partial(block, p=p, cfg=cfg, cs=cs, window=int(w), causal=causal,
                                enc_out=enc_out)
-        x = _remat(fn, remat_policy)(x)
+        if routing is None or "moe" not in p:
+            x = _remat(fn, remat_policy)(x)
+            continue
+
+        def routed(x, offset, fn=fn):
+            call = MoECall(routing.tokens, offset)
+            return fn(x, moe_call=call), call.counts
+
+        x, counts = _remat(routed, remat_policy)(
+            x, routing.offset(li, cfg.num_experts, x.device))
+        routing.add(li, counts)
     return x
 
 
@@ -316,15 +390,19 @@ def label_key(cfg: ModelConfig) -> str:
     return "target_labels" if cfg.encoder_layers > 0 else "labels"
 
 
-def loss_sums(params, cfg: ModelConfig, batch, remat_policy: str = "nothing"):
+def loss_sums(params, cfg: ModelConfig, batch, remat_policy: str = "nothing",
+              routing: Optional[Routing] = None):
     """(Σ of the token NLLs over the labels ≥ 0, their count), float32:
-    the loss of rows that are part of a larger batch, combined by sums."""
+    the loss of rows that are part of a larger batch, combined by sums.
+    ``routing``: the microbatch's MoE routing record, which these rows
+    read and add to (`Routing`; a decoder-only config)."""
     if cfg.encoder_layers > 0:
         return _encdec_sums(params, cfg, batch)
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens, batch.get("prefix_embeds"))
     cs = _rope(cfg, _positions(tokens.shape[1], tokens.device))
-    x = _train_blocks(x, params["blocks"], cfg, cs, remat_policy=remat_policy)
+    x = _train_blocks(x, params["blocks"], cfg, cs, remat_policy=remat_policy,
+                      routing=routing)
     return head_loss_chunked(params, cfg, x, batch["labels"])
 
 

@@ -28,8 +28,11 @@ its batch dim, each replica gathers the parameters onto its device in
 ``cfg.dtype``, runs the forward and backward on its rows, and adds its
 float32 gradients into each leaf's blocks (`accumulate_grads_mesh`). The
 loss is combined by its sums and the global count of labels, so it is the
-function the one-device step computes. Compute on the "model" axis is not
-split (no tensor-parallel products): that axis shards storage only.
+function the one-device step computes; an MoE config's replicas share
+each microbatch's expert queues through a routing record, so they drop
+the slots one device drops. Compute on the "model" axis is not split (no
+tensor-parallel or expert-parallel products): that axis shards storage
+only.
 The reference's ``compile_train_step`` lowers to XLA for its dry run and
 has no counterpart.
 """
@@ -196,7 +199,21 @@ def accumulate_grads_mesh(cfg: ModelConfig, params: dict, batch: Dict[str, torch
     rows' NLL sum over the microbatch's count of labels ≥ 0, so the
     replicas' gradients, added into the blocks in replica order, are the
     gradient of the microbatch's masked token mean; the sums over the
-    microbatches are divided by ``n_mb``."""
+    microbatches are divided by ``n_mb``.
+
+    An MoE config's capacity dispatch couples a microbatch's rows: C is
+    set by its token count, and a slot's place in its expert's queue is a
+    running count over all its (token, k) slots. Each microbatch gets a
+    fresh `transformer.Routing` record of its token count (never a
+    replica's), and the replicas run in order: at each MoE layer a replica
+    reads the [E] slot counts the earlier ones sent to each expert as its
+    offset and adds its own, so every replica keeps and drops the slots
+    the one-device step does. The counts move between replicas' devices
+    with ``.to``, with no host sync. A runtime whose replicas run
+    concurrently would exchange the same counts at each MoE layer: an
+    all-gather of the replicas' [R, E] counts and an exclusive cumsum over
+    R. The port runs the replicas in order on one queue. The experts are
+    gathered whole on each replica (no expert-parallel compute)."""
     cdtype = getattr(torch, cfg.dtype)
     items = list(OPT.tree_items(params))
     dev0 = mesh.devices[0]
@@ -208,10 +225,11 @@ def accumulate_grads_mesh(cfg: ModelConfig, params: dict, batch: Dict[str, torch
     for i in range(n_mb):
         count = (labels[i] >= 0).sum(dtype=torch.float32).to(dev0).clamp_min(1.0)
         nll_mb = torch.zeros((), dtype=torch.float32, device=dev0)
+        routing = T.Routing(batch["tokens"][i].numel()) if cfg.num_experts > 0 else None
         for dev, rows in reps:
             cparams = _gather_params(items, dev, cdtype)
             nll, _ = T.loss_sums(cparams, cfg, {k: v[i, rows].to(dev) for k, v in batch.items()},
-                                 remat_policy=remat_policy)
+                                 remat_policy=remat_policy, routing=routing)
             # a leaf the loss does not read (an unused adapter) gets 0
             grads = torch.autograd.grad(nll / count.to(dev), OPT.tree_leaves(cparams),
                                         allow_unused=True)
@@ -237,16 +255,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Optional[NamedMes
     "grad_norm" (before clipping), "lr"}. With ``mesh`` the state is
     sharded by `state_shardings` (`sharding.array.device_put`) and leaves
     sharded the same way. Raises `TypeError` for a mesh that is not a
-    `NamedMesh` and `NotImplementedError` for an MoE config on a mesh."""
-    if mesh is not None:
-        if not isinstance(mesh, NamedMesh) or mesh.devices is None:
-            raise TypeError(f"make_train_step(mesh=...) takes a NamedMesh with devices "
-                            f"(launch.mesh.make_mesh), not {mesh!r}")
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "make_train_step(mesh=...) for an MoE config: expert capacity couples a "
-                "microbatch's rows, so a data-parallel split changes which slots drop "
-                "(ROADMAP.md queue 1 item 5, the MoE mesh step)")
+    `NamedMesh`."""
+    if mesh is not None and (not isinstance(mesh, NamedMesh) or mesh.devices is None):
+        raise TypeError(f"make_train_step(mesh=...) takes a NamedMesh with devices "
+                        f"(launch.mesh.make_mesh), not {mesh!r}")
 
     def train_step(state: TrainState, batch):
         if mesh is None:

@@ -2,20 +2,23 @@
 `accumulate_grads_mesh`, `optimizer.apply_sharded`) and sharded
 checkpoints on CPU meshes, at smoke size.
 
-The mesh step is held to the port's one-device step for every config whose
-rows are independent (the eight that are not MoE) on three meshes: (2, 2)
-and (1, 2) on ("data", "model") and (2, 1, 2) on ("pod", "data",
-"model"); for tinyllama also to the reference's one-device
-``make_train_step``, two steps from its own initial state. The reference's
-mesh step is not the yardstick: ``tests/test_distributed.py``'s mesh train
-test is red under jax 0.9 (ROADMAP §3), and the function GSPMD's sharded
-step computes is the one-device step's. Then the two places a mesh step is
-likely to go wrong: the masked-token mean over replicas (labels masked in
-one replica's rows only; a mean of the replicas' means is another number)
-and the gradient norm with a replicated leaf (a copy counted once); MoE
-configs and other meshes refused; a sharded save bit-equal to the
-unsharded one and restored by the reference; the reference's checkpoint
-restored with ``shardings=`` onto two meshes.
+The mesh step is held to the port's one-device step for all ten configs
+on three meshes: (2, 2) and (1, 2) on ("data", "model") and (2, 1, 2) on
+("pod", "data", "model"); for tinyllama and grok-1 also to the
+reference's one-device ``make_train_step``, two steps from its own
+initial state. The reference's mesh step is not the yardstick:
+``tests/test_distributed.py``'s mesh train test is red under jax 0.9
+(ROADMAP §3), and the function GSPMD's sharded step computes is the
+one-device step's. Then the places a mesh step is likely to go wrong:
+the masked-token mean over replicas (labels masked in one replica's rows
+only; a mean of the replicas' means is another number), the gradient norm
+with a replicated leaf (a copy counted once), and MoE capacity, which
+couples a microbatch's rows (slots drop in the batch used, and a naive
+split, each replica its own capacity, misses the one-device loss; the
+routing record under ``remat_policy="dots"``); other meshes refused; a
+sharded save bit-equal to the unsharded one and restored by the
+reference; the reference's checkpoint restored with ``shardings=`` onto
+two meshes.
 
 Tolerances are `tests/test_torch_train.py`'s: the loss within 2e-5
 relative, the gradient norm 1e-5, the rate 1e-6, each moment leaf within
@@ -52,6 +55,7 @@ LOSS_TOL, NORM_TOL, LR_TOL, MOMENT_TOL, PARAM_TOL = 2e-5, 1e-5, 1e-6, 2e-4, 1e-6
 GRAD_TOL = 2e-4
 ROW_INDEPENDENT = ["tinyllama-1.1b", "qwen1.5-0.5b", "phi3-mini-3.8b", "starcoder2-15b",
                    "llava-next-mistral-7b", "hymba-1.5b", "whisper-small", "rwkv6-3b"]
+MOE = ["grok-1-314b", "llama4-maverick-400b-a17b"]
 MESHES = {"2x2": ((2, 2), ("data", "model")), "1x2": ((1, 2), ("data", "model")),
           "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
 OPT_KW = dict(lr=1e-3, warmup_steps=0, eps=1e-3)
@@ -59,14 +63,15 @@ OPT_KW = dict(lr=1e-3, warmup_steps=0, eps=1e-3)
 #: on the meshes with 2 data replicas
 B, S, N_MB = 4, 16, 2
 REF_ARCH = "tinyllama-1.1b"
+MOE_REF_ARCH = "grok-1-314b"
 
 
 def _mesh(name):
     return M.make_mesh(*MESHES[name], device="cpu")
 
 
-def _tcfg():
-    return TS.TrainConfig(microbatches=N_MB, opt=OPT.AdamWConfig(**OPT_KW))
+def _tcfg(**kw):
+    return TS.TrainConfig(microbatches=N_MB, opt=OPT.AdamWConfig(**OPT_KW), **kw)
 
 
 def _batch(cfg, step):
@@ -122,33 +127,49 @@ def one_device():
     return run
 
 
-@pytest.mark.parametrize("mesh_name", MESHES)
-@pytest.mark.parametrize("arch", ROW_INDEPENDENT)
-def test_mesh_step_matches_one_device(arch, mesh_name, one_device):
+def _mesh_step_matches_one_device(arch, mesh_name, one_device, **tkw):
     cfg, mesh = R.get_smoke_config(arch), _mesh(mesh_name)
     want_m, want = one_device(arch)
     state = SA.device_put(TS.init_state(cfg, 0, device="cpu"), TS.state_shardings(cfg, mesh))
-    state, m = TS.make_train_step(cfg, _tcfg(), mesh=mesh)(state, _batch(cfg, 0))
+    state, m = TS.make_train_step(cfg, _tcfg(**tkw), mesh=mesh)(state, _batch(cfg, 0))
     assert state.step == state.opt.step == 1
     _assert_metrics(m, want_m)
     _assert_state_close(state, _np_tree(want.params), _np_tree(want.opt.mu),
                         _np_tree(want.opt.nu))
 
 
-@pytest.fixture(scope="module")
-def reference_run():
-    """The reference's tinyllama smoke state from PRNGKey(0), its
+@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("arch", ROW_INDEPENDENT + MOE)
+def test_mesh_step_matches_one_device(arch, mesh_name, one_device):
+    _mesh_step_matches_one_device(arch, mesh_name, one_device)
+
+
+def test_moe_mesh_step_under_dots_remat_matches_one_device(one_device):
+    """grok-1 on (2, 2) with ``remat_policy="dots"``: the recomputed layers
+    read the offsets their forward read, and the routing record counts
+    each replica once (slots drop in microbatch 1)."""
+    _mesh_step_matches_one_device(MOE_REF_ARCH, "2x2", one_device, remat_policy="dots")
+
+
+def _reference_run(arch):
+    """The reference's smoke state of ``arch`` from PRNGKey(0), its
     one-device step's metrics over two steps, and its final state."""
-    jcfg = JR.get_smoke_config(REF_ARCH)
+    jcfg = JR.get_smoke_config(arch)
     js0 = jax.device_get(JTS.init_state(jcfg, jax.random.PRNGKey(0)))
     jstep = jax.jit(JTS.make_train_step(
         jcfg, JTS.TrainConfig(microbatches=N_MB, opt=JO.AdamWConfig(**OPT_KW))))
     js, metrics = js0, []
     for s in range(2):
-        js, jm = jstep(js, {k: v.numpy() for k, v in _batch(R.get_smoke_config(REF_ARCH),
+        js, jm = jstep(js, {k: v.numpy() for k, v in _batch(R.get_smoke_config(arch),
                                                            s).items()})
         metrics.append({k: float(v) for k, v in jm.items()})
     return js0, metrics, jax.device_get(js)
+
+
+@pytest.fixture(scope="module")
+def reference_run():
+    """`_reference_run` of tinyllama."""
+    return _reference_run(REF_ARCH)
 
 
 def _ref_tree(tree) -> dict:
@@ -156,13 +177,12 @@ def _ref_tree(tree) -> dict:
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("mesh_name", MESHES)
-def test_tinyllama_mesh_step_matches_reference(mesh_name, reference_run):
+def _mesh_steps_match_reference(arch, mesh_name, run):
     """Two mesh steps from the reference's own initial state against its
     one-device ``make_train_step``; the same two steps run again are
     bit-equal."""
-    js0, want_metrics, js = reference_run
-    cfg, mesh = R.get_smoke_config(REF_ARCH), _mesh(mesh_name)
+    js0, want_metrics, js = run
+    cfg, mesh = R.get_smoke_config(arch), _mesh(mesh_name)
     runs = []
     for _ in range(2):
         state = SA.device_put(convert.train_state_from_reference(js0, "cpu"),
@@ -175,6 +195,49 @@ def test_tinyllama_mesh_step_matches_reference(mesh_name, reference_run):
     _assert_state_close(state, _ref_tree(js.params), _ref_tree(js.opt.mu), _ref_tree(js.opt.nu))
     for (_, a), (_, b) in zip(CK.leaf_items(runs[0]), CK.leaf_items(runs[1])):
         assert a == b if isinstance(a, int) else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mesh_name", MESHES)
+def test_tinyllama_mesh_step_matches_reference(mesh_name, reference_run):
+    _mesh_steps_match_reference(REF_ARCH, mesh_name, reference_run)
+
+
+def test_grok_mesh_step_matches_reference():
+    """grok-1's expert capacity on a (2, 2) mesh: the reference's
+    one-device step's function, two steps."""
+    _mesh_steps_match_reference(MOE_REF_ARCH, "2x2", _reference_run(MOE_REF_ARCH))
+
+
+def test_moe_slots_drop_and_a_naive_split_misses():
+    """grok-1 on (2, 2), the batch of the tests above: its second
+    microbatch drops slots at both layers. Each replica on its own (its
+    rows' C, no offsets) misses the one-device loss by far more than the
+    tolerance; the mesh's accumulated loss and gradients hold."""
+    cfg, mesh = R.get_smoke_config(MOE_REF_ARCH), _mesh("2x2")
+    batch = _batch(cfg, 0)
+    params = TS.init_state(cfg, 0, device="cpu").params
+    reps = TS.replicas(cfg, mesh, batch)
+    assert len(reps) == 2
+    naive, dropped = 0.0, []
+    with torch.no_grad():
+        for i in range(N_MB):
+            rows = [{k: v[i, r] for k, v in batch.items()} for _, r in reps]
+            count = float((batch["labels"][i] >= 0).sum())
+            naive += sum(float(T.loss_sums(params, cfg, b)[0]) for b in rows) / count / N_MB
+            routing = T.Routing(batch["tokens"][i].numel())
+            for b in rows:
+                T.loss_sums(params, cfg, b, routing=routing)
+            dropped.append([int(d) for d in routing.dropped(cfg.experts_per_token,
+                                                            cfg.num_experts)])
+    assert sum(map(sum, dropped)) > 0, dropped
+    loss1, g1 = TS.accumulate_grads(cfg, params, batch)
+    assert abs(naive - float(loss1)) > 10 * LOSS_TOL * float(loss1)
+    lossm, gm = TS.accumulate_grads_mesh(
+        cfg, SA.device_put(params, MP.param_shardings(cfg, mesh)), batch, mesh)
+    assert abs(float(lossm) - float(loss1)) <= LOSS_TOL * float(loss1)
+    for (path, a), (_, b) in zip(OPT.tree_items(SA.gather_tree(gm, "cpu")),
+                                 OPT.tree_items(g1)):
+        assert _rel(a.numpy(), b.numpy()) <= GRAD_TOL, path
 
 
 def test_masked_labels_in_one_replica_combine_by_sums():
@@ -220,14 +283,6 @@ def test_grad_norm_counts_a_replicated_block_once():
     assert abs(float(om["grad_norm"]) - want) <= NORM_TOL * want
     assert abs(every_copy - want) > 10 * NORM_TOL * want
     assert all(SA.copies_equal(t) for t in SA.leaves(sharded))
-
-
-@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
-def test_moe_mesh_step_is_not_implemented(arch):
-    cfg = R.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TS.make_train_step(cfg, _tcfg(), mesh=_mesh("2x2"))
-    TS.make_train_step(cfg, _tcfg())     # one device still trains
 
 
 @pytest.mark.parametrize("mesh", [M.make_abstract_mesh((2, 2), ("data", "model")),
